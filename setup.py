@@ -7,7 +7,8 @@ setup(
     version="0.1.0",
     description=("TPU-native incremental few-shot object detection "
                  "(Sylph hypernetwork framework rebuilt on JAX/XLA)"),
-    packages=find_packages(include=["sylph_tpu", "sylph_tpu.*"]),
+    packages=find_packages(include=["sylph_tpu", "sylph_tpu.*",
+                                    "sylph_tpu_torch", "sylph_tpu_torch.*"]),
     package_data={"": ["../configs/**/*.yaml"]},
     python_requires=">=3.10",
     install_requires=[

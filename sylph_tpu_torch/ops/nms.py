@@ -1,0 +1,111 @@
+"""Batched multiclass greedy NMS (port of sylph_tpu/ops/nms.py).
+
+Greedy NMS followed by a top-``max_outputs`` cap is exactly the first
+``max_outputs`` greedy picks, so the selection runs ``max_outputs``
+select-and-suppress steps rather than a K x K IoU matrix. Multiclass
+behaviour comes from the class-offset trick (boxes of different classes
+never overlap).
+
+Dispatch follows the tensors' device: CUDA tensors go to the hand-written
+kernel (``ops/nms_kernel.py``, ``csrc/nms.cu``), CPU tensors to the plain
+PyTorch twin ``nms_select_reference``. ``impl="reference"`` names the twin
+explicitly, for comparisons on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import nms_kernel
+
+NEG_INF = -1e10
+
+
+def nms_select_reference(boxes: torch.Tensor, scores: torch.Tensor,
+                         valid: torch.Tensor, iou_threshold: float,
+                         max_outputs: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch greedy NMS, batched over B (twin of ``nms_select``
+    and of the NMS kernel).
+
+    Args:
+      boxes: (B, K, 4) XYXY (already class-offset for multiclass use).
+      scores: (B, K); invalid entries may hold any value.
+      valid: (B, K) bool.
+
+    Returns:
+      (idx, ok): (B, max_outputs) int32 indices (0 where not ok) and bool.
+    """
+    b, k = scores.shape
+    dev = scores.device
+    alive = torch.where(valid, scores.float(), NEG_INF)
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    area = (torch.clamp(x2 - x1, min=0.0) * torch.clamp(y2 - y1, min=0.0))
+    iota = torch.arange(k, device=dev)
+    idx = torch.zeros((b, max_outputs), dtype=torch.int32, device=dev)
+    ok = torch.zeros((b, max_outputs), dtype=torch.bool, device=dev)
+    for t in range(max_outputs):
+        i = torch.argmax(alive, dim=1, keepdim=True)  # first max on ties
+        ok_t = alive.gather(1, i) > NEG_INF / 2        # (B, 1)
+        if not bool(ok_t.any()):
+            break  # nothing alive anywhere: the remaining slots stay 0
+        pick = lambda v: v.gather(1, i)  # noqa: E731
+        iw = torch.clamp(torch.minimum(x2, pick(x2))
+                         - torch.maximum(x1, pick(x1)), min=0.0)
+        ih = torch.clamp(torch.minimum(y2, pick(y2))
+                         - torch.maximum(y1, pick(y1)), min=0.0)
+        inter = iw * ih
+        union = torch.clamp(area + pick(area) - inter, min=1e-9)
+        suppress = (inter / union > iou_threshold) | (iota[None] == i)
+        alive = torch.where(ok_t & suppress, NEG_INF, alive)
+        idx[:, t] = torch.where(ok_t[:, 0], i[:, 0], 0).to(torch.int32)
+        ok[:, t] = ok_t[:, 0]
+    return idx, ok
+
+
+def class_offset_boxes(boxes: torch.Tensor, classes: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """Translate each class into a disjoint region; the extent is taken
+    over valid boxes only."""
+    max_coord = torch.amax(torch.where(valid[..., None], boxes, 0.0),
+                           dim=(1, 2), keepdim=True) + 1.0
+    return boxes + classes.to(boxes.dtype)[..., None] * max_coord
+
+
+def batched_multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                           classes: torch.Tensor, valid: torch.Tensor,
+                           iou_threshold: float, max_outputs: int,
+                           impl: Optional[str] = None):
+    """Multiclass NMS for a batch with a static output size.
+
+    Args:
+      boxes: (B, K, 4) float32, scores: (B, K), classes: (B, K) int,
+      valid: (B, K) bool.
+      impl: None dispatches by device (CUDA -> kernel, CPU -> twin);
+        "reference" runs the twin on any device.
+
+    Returns:
+      (boxes, scores, classes, valid, gather_idx), each (B, max_outputs,
+      ...): the top ``max_outputs`` greedy picks by score; ``gather_idx``
+      indexes the input candidate axis.
+    """
+    if impl not in (None, "reference"):
+        raise ValueError(f"unknown NMS impl {impl!r}")
+    shifted = class_offset_boxes(boxes, classes, valid)
+    if impl == "reference" or not boxes.is_cuda:
+        idx, ok = nms_select_reference(shifted, scores, valid, iou_threshold,
+                                       max_outputs)
+    else:
+        planes = shifted.float().permute(2, 0, 1).contiguous()
+        idx, ok = nms_kernel.nms_cuda(
+            planes[0], planes[1], planes[2], planes[3],
+            scores.float().contiguous(), valid.to(torch.int32).contiguous(),
+            iou_threshold, max_outputs)
+        ok = ok.bool()
+
+    gidx = idx.long()
+    out_boxes = boxes.gather(1, gidx[..., None].expand(-1, -1, 4))
+    out_scores = torch.where(ok, scores.gather(1, gidx), 0.0)
+    return out_boxes, out_scores, classes.gather(1, gidx), ok, idx

@@ -1,0 +1,40 @@
+"""The port imports nothing of JAX, flax or the JAX package.
+
+A fresh interpreter imports every module of ``sylph_tpu_torch`` and
+``chip_smoke`` (without running its ``main``) and then inspects
+``sys.modules``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, json, pkgutil, sys
+import sylph_tpu_torch
+names = ["sylph_tpu_torch", "chip_smoke"] + [
+    m.name for m in pkgutil.walk_packages(sylph_tpu_torch.__path__,
+                                          "sylph_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sylph_tpu"))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    expected = {"sylph_tpu_torch.predictor", "sylph_tpu_torch.runner",
+                "sylph_tpu_torch.ops.nms_kernel",
+                "sylph_tpu_torch.models.meta_arch",
+                "sylph_tpu_torch.utils.convert_weights", "chip_smoke"}
+    assert expected <= set(report["imported"])
