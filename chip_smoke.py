@@ -6,10 +6,15 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. device: require CUDA, print the card's name and power limit;
-  2. build the NMS kernel from sylph_tpu_torch/csrc/nms.cu (nvcc, sm_90a);
+  2. build the NMS kernel from sylph_tpu_torch/csrc/nms.cu and its first
+     design from csrc/nms_greedy.cu, the yardstick (nvcc, sm_90a, both
+     started together);
   3. NMS kernel against its plain PyTorch twin on the card, random and
-     tie-laden inputs, B in {1, 8, 48}, K = 5000, M in {100, 300}:
-     indices and flags must be identical; prints the kernel's time;
+     tie-laden inputs, B in {1, 8, 48}, K = 5000, M in {100, 300}, then
+     inputs aimed at the chunked scan at B = 1 (identical boxes, no
+     overlap, dense clusters, score ties across every chunk boundary,
+     -0.0/+0.0 ties): indices and flags must be identical, the first
+     design's too; prints both kernels' times and the slowest case;
   4. serving at full width: the Meta-FCOS finetune config (R-50, FPN 256,
      4-conv towers, CodeGenerator, 1024x1344 eval canvas, 384x384 support
      canvas, 10 shots, a 1280-row code bank) with random weights from a
@@ -23,7 +28,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      to boxes 0.05, scores 1e-3, equal classes.
 
 The last lines are the card's ``name, power.limit``, one JSON object
-listing every kernel with its launches, error and times, and
+listing every kernel with its launches, error and times (``earlier_ms``:
+the first design's time on the main path's NMS input), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -49,9 +55,11 @@ CONFIG = "sylph://COCO-Detection/Meta-FCOS/Meta-FCOS-finetune.yaml"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-# Work per alive candidate per NMS step: argmax compare, 2 max, 2 min,
-# 3 sub, 2 clamp, 1 mul, 1 add, 1 max, 1 div, 1 compare.
-NMS_OPS_PER_CANDIDATE_STEP = 15
+# One IoU test: 2 max, 2 min, 3 sub, 2 clamp, 1 mul, 1 add, 1 max, 1 div,
+# 1 compare.
+NMS_OPS_PER_IOU_TEST = 14
+ADVERSARIAL = ("identical_boxes", "no_overlap", "dense_clusters",
+               "chunk_boundary_ties", "signed_zeros")
 
 
 def log(msg: str) -> None:
@@ -65,20 +73,32 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def time_ms(fn, reps: int, warmup: int = 2, rounds: int = 5) -> float:
+def time_ms(fn, reps: int, warmup: int = 2, rounds: int = 5,
+            graph: bool = False) -> float:
     """Median over ``rounds`` of the mean time of ``reps`` back-to-back
-    calls of ``fn`` between two CUDA events (the card stays busy, so the
-    host's launch overhead hides behind the previous call)."""
+    calls of ``fn`` between two CUDA events. Without ``graph`` the calls
+    are issued from the host, so a call that is shorter on the card than
+    on the host measures the host. With ``graph`` the ``reps`` calls are
+    captured once in a CUDA graph that is replayed between the events:
+    the kernels' time on the card, back to back."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            run()
+        run = g.replay
     times = []
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
-            fn()
+        run()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
@@ -102,6 +122,37 @@ def nms_inputs(gen: torch.Generator, b: int, k: int, ties: bool):
     return [t.cuda() for t in (boxes, scores, classes, valid)]
 
 
+def adversarial_inputs(gen: torch.Generator, kind: str, k: int = 5000):
+    """One image of one class, aimed at the kernel's chunked scan."""
+    ctr = torch.rand((1, k, 2), generator=gen) * 1300
+    wh = 8 + torch.rand((1, k, 2), generator=gen) * 300
+    scores = torch.rand((1, k), generator=gen).sqrt()
+    if kind == "identical_boxes":  # one pick, then nothing alive
+        ctr[:] = 500.0
+        wh[:] = 300.0
+    elif kind == "no_overlap":  # disjoint grid cells: picks = first M
+        side = int(np.ceil(np.sqrt(k)))
+        cell = torch.stack(torch.meshgrid(torch.arange(side),
+                                          torch.arange(side), indexing="ij"),
+                           -1).reshape(-1, 2)[:k].float()
+        ctr = (cell * 10 + 4)[None]
+        wh = torch.full((1, k, 2), 8.0)
+    elif kind == "dense_clusters":  # most suppressed: every chunk scanned
+        centres = torch.rand((24, 2), generator=gen) * 1200
+        pick = torch.randint(0, 24, (k,), generator=gen)
+        ctr = (centres[pick] + torch.randn((k, 2), generator=gen) * 6)[None]
+        wh = 60 + torch.rand((1, k, 2), generator=gen) * 40
+    elif kind == "chunk_boundary_ties":  # 6 score values: long tie runs
+        scores = torch.randint(1, 7, (1, k), generator=gen).float() / 6
+    elif kind == "signed_zeros":
+        scores = torch.tensor([-0.0, 0.0, -0.5, 0.5])[
+            torch.randint(0, 4, (1, k), generator=gen)]
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+    classes = torch.zeros((1, k), dtype=torch.long)
+    valid = torch.ones((1, k), dtype=torch.bool)
+    return [t.cuda() for t in (boxes, scores, classes, valid)]
+
+
 def nms_planes(boxes, scores, classes, valid):
     shifted = class_offset_boxes(boxes, classes, valid)
     planes = shifted.permute(2, 0, 1).contiguous()
@@ -109,43 +160,79 @@ def nms_planes(boxes, scores, classes, valid):
             scores.contiguous(), valid.to(torch.int32).contiguous())
 
 
-def nms_bound_ms(b: int, k: int, m: int, ok: torch.Tensor):
+def walk_tests(scores, valid, idx, ok) -> int:
+    """IoU tests the walk in (score desc, index asc) order needs: each
+    candidate it reaches against each kept one ranked before it."""
+    tests = 0
+    for r in range(scores.shape[0]):
+        s = torch.where(valid[r], scores[r] + 0.0, -1e10)
+        n = int((s > -5e9).sum())
+        order = torch.sort(-s, stable=True).indices[:n]
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(n, device=order.device)
+        kept = rank[idx[r][ok[r]].long()]
+        reached = int(kept.max()) + 1 if int(ok[r].sum()) == idx.shape[1] \
+            else n
+        tests += int((reached - 1 - kept).sum())
+    return tests
+
+
+def nms_bound_ms(scores, valid, idx, ok):
     """Least time for the work this input needs: each input read once,
-    each output written once; IoU work for the steps the loop ran."""
+    each output written once; the IoU tests of the walk, and
+    K log2 K compares to order the candidates."""
+    (b, k), m = scores.shape, idx.shape[1]
     nbytes = b * k * (4 * 4 + 4 + 4) + b * m * (4 + 4)
-    picks = ok.sum(dim=1)
-    steps = int(torch.clamp(picks + (picks < m).long(), max=m).sum())
-    ops = steps * k * NMS_OPS_PER_CANDIDATE_STEP
+    ops = (walk_tests(scores, valid, idx, ok) * NMS_OPS_PER_IOU_TEST
+           + b * k * int(np.ceil(np.log2(max(k, 2)))))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
+def check_nms_case(inputs, m: int, what: str):
+    """Kernel and first design against the twin, then both timed."""
+    boxes, scores, classes, valid = inputs
+    want = batched_multiclass_nms(boxes, scores, classes, valid, 0.6, m,
+                                  impl="reference")
+    got = batched_multiclass_nms(boxes, scores, classes, valid, 0.6, m)
+    _, *planes = nms_planes(boxes, scores, classes, valid)
+    g_idx, g_ok = nms_kernel.nms_cuda_greedy(*planes, 0.6, m)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("boxes", "scores", "classes", "ok", "idx"), got,
+                          want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"NMS kernel != twin in {name}: {what}")
+    if not (torch.equal(g_idx, want[4]) and torch.equal(g_ok.bool(),
+                                                        want[3])):
+        raise AssertionError(f"first design != twin: {what}")
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, 0.6, m), 20,
+                 graph=True)
+    greedy_ms = time_ms(lambda: nms_kernel.nms_cuda_greedy(*planes, 0.6, m),
+                        20, graph=True)
+    log(f"[nms] {what}: identical to the twin; kernel {ms:.4f} ms, first "
+        f"design {greedy_ms:.4f} ms, {int(got[3].sum())} picks")
+    return err, ms
+
+
 def phase_nms_against_twin() -> float:
     gen = torch.Generator().manual_seed(1)
-    max_err = 0.0
+    max_err, slowest = 0.0, (0.0, "")
     for b in (1, 8, 48):
         for m in (100, 300):
             for ties in (False, True):
-                boxes, scores, classes, valid = nms_inputs(gen, b, 5000, ties)
-                got = batched_multiclass_nms(boxes, scores, classes, valid,
-                                             0.6, m)
-                want = batched_multiclass_nms(boxes, scores, classes, valid,
-                                              0.6, m, impl="reference")
-                torch.cuda.synchronize()
-                for name, g, w in zip(("boxes", "scores", "classes", "ok",
-                                       "idx"), got, want):
-                    if not torch.equal(g, w):
-                        raise AssertionError(
-                            f"NMS kernel != twin in {name} at B={b} K=5000 "
-                            f"M={m} ties={ties}")
-                    max_err = max(max_err, float(
-                        (g.double() - w.double()).abs().max()))
-                _, *planes = nms_planes(boxes, scores, classes, valid)
-                ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, 0.6, m), 20)
-                log(f"[nms] B={b:2d} K=5000 M={m} ties={ties!s:5}: identical "
-                    f"to the twin; kernel {ms:.4f} ms, "
-                    f"{int(got[3].sum())} picks")
+                what = f"B={b:2d} K=5000 M={m} ties={ties!s:5}"
+                err, ms = check_nms_case(nms_inputs(gen, b, 5000, ties), m,
+                                         what)
+                max_err, slowest = max(max_err, err), max(slowest, (ms, what))
+    for kind in ADVERSARIAL:
+        for m in (100, 300):
+            what = f"B= 1 K=5000 M={m} {kind}"
+            err, ms = check_nms_case(adversarial_inputs(gen, kind), m, what)
+            max_err, slowest = max(max_err, err), max(slowest, (ms, what))
+    log(f"[nms] slowest case: {slowest[1]}, kernel {slowest[0]:.4f} ms")
     return max_err
 
 
@@ -269,20 +356,35 @@ def phase_serving(device: str = "cuda"):
 
 
 def time_nms_on(cand, dcfg):
-    """Kernel and twin times on the main path's own NMS input."""
+    """Kernel, first-design and twin times on the main path's own NMS
+    input; the two designs at M = 300 too."""
     m, thr = dcfg.post_nms_topk, dcfg.nms_thresh
     shifted, *planes = nms_planes(cand.boxes, cand.scores, cand.classes,
                                   cand.valid)
     b, k = cand.scores.shape
-    ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, thr, m), 50)
+    ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, thr, m), 50,
+                 graph=True)
+    call_ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, thr, m), 50)
+    earlier_ms = time_ms(lambda: nms_kernel.nms_cuda_greedy(*planes, thr, m),
+                         50, graph=True)
     plain_ms = time_ms(lambda: nms_select_reference(
         shifted, cand.scores, cand.valid, thr, m), 5, warmup=1)
-    _, ok = nms_kernel.nms_cuda(*planes, thr, m)
-    bound_ms, bound_by = nms_bound_ms(b, k, m, ok)
-    log(f"[nms] main-path input B={b} K={k} M={m}: kernel {ms:.4f} ms, "
-        f"twin {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    idx, ok = nms_kernel.nms_cuda(*planes, thr, m)
+    bound_ms, bound_by = nms_bound_ms(cand.scores, cand.valid, idx,
+                                      ok.bool())
+    log(f"[nms] main-path input B={b} K={k} M={m}: kernel {ms:.4f} ms "
+        f"({call_ms:.4f} ms a call issued from the host), first design "
+        f"{earlier_ms:.4f} ms, twin {plain_ms:.3f} ms, bound {bound_ms:.6f} "
+        f"ms ({bound_by})")
+    ms300 = time_ms(lambda: nms_kernel.nms_cuda(*planes, thr, 300), 50,
+                    graph=True)
+    earlier300 = time_ms(lambda: nms_kernel.nms_cuda_greedy(*planes, thr,
+                                                            300), 50,
+                         graph=True)
+    log(f"[nms] main-path input at M=300: kernel {ms300:.4f} ms, first "
+        f"design {earlier300:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, earlier_ms=earlier_ms)
 
 
 # ----------------------------------------------------------- card vs CPU
@@ -335,11 +437,13 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
-    nms_kernel.build()
-    log(f"[build] nms.cu built in {time.perf_counter() - t0:.1f} s")
-    for line in nms_kernel.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
+    nms_kernel.build(("nms", "nms_greedy"))
+    log(f"[build] nms.cu and nms_greedy.cu built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, out in nms_kernel.BUILD_LOG.items():
+        for line in out.splitlines():
+            if any(w in line for w in ("Compiling", "registers", "spill")):
+                log(f"[build] {name}: {line.strip()}")
 
     max_err = phase_nms_against_twin()
     launches, timing = phase_serving()

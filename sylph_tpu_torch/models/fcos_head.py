@@ -6,8 +6,9 @@ sylph_tpu/models/fcos_head.py).
   * ``cls_logits``, ``bbox_pred``, ``ctrness``, ``iou_overlap``; per-level
     ``Scale`` *then* relu on the regression;
   * conditional classification: with 1x1 class codes the conditional conv is
-    one float32 matmul of the flattened cls tower over the code bank plus
-    the bias.
+    one matmul of the flattened cls tower over the code bank plus the bias,
+    with operands in the compute dtype and float32 accumulation and output
+    (the JAX package's ``preferred_element_type=float32``).
 
 Outputs are flattened level-major, then row-major over (h, w), exactly as
 the JAX package's NHWC ``reshape(b, -1, C)`` orders them.
@@ -95,7 +96,11 @@ class FCOSHead(nn.Module):
                 ) -> HeadOutputs:
         if class_code is not None:
             code_w = class_code["cls_conv"]
-            code_w = code_w.reshape(code_w.shape[0], -1).float()  # (N, 256)
+            # (N, 256) rounded to the compute dtype: a float32 product of
+            # bf16 operands is exact, so the float32 matmul below
+            # accumulates the bf16 products in float32
+            code_w = code_w.reshape(code_w.shape[0], -1) \
+                .to(self.compute_dtype).float()
             code_b = class_code["cls_bias"].reshape(-1).float()    # (N,)
 
         logits_l, reg_l, ctr_l, iou_l = [], [], [], []

@@ -3,7 +3,9 @@
 Parameters stay float32; activations run in the model's compute dtype.
 ``Conv2d`` casts its weights to the input's dtype on the fly and
 ``GroupNorm`` normalizes in float32 (flax ``GroupNorm(dtype=float32)``), so
-one float32 state dict serves both float32 and bfloat16 runs.
+one float32 state dict serves both float32 and bfloat16 runs. On bfloat16
+inputs ``GroupNorm`` rounds its scale and bias to bfloat16 before using them
+in float32, as the JAX package's bf16-resident parameters are used.
 """
 
 from __future__ import annotations
@@ -35,8 +37,11 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(num_groups, num_channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        w, b = self.weight, self.bias
+        if x.dtype != torch.float32:
+            w, b = w.to(x.dtype).float(), b.to(x.dtype).float()
+        return F.group_norm(x.float(), self.num_groups, w, b,
+                            self.eps).to(x.dtype)
 
 
 class Scale(nn.Module):

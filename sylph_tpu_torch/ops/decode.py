@@ -56,13 +56,28 @@ def _apply_quality(scores, ctr, iou, box_quality):
 
 
 def _topk_lower_index_first(x: torch.Tensor, k: int):
-    """``torch.topk`` over the last axis with equal values ordered by
-    ascending index (``jax.lax.top_k``'s order)."""
+    """``jax.lax.top_k`` over the last axis: every element above the k-th
+    value, then the lowest-index elements equal to it; equal values in
+    ascending index order.
+
+    ``torch.topk`` picks freely among the elements tied at the k-th value,
+    so only its elements above that value are kept. The slots of the tie
+    run are refilled with the first elements equal to it, found by a
+    search in the running count of the ties (no sort of the whole row).
+    """
     vals, idx = torch.topk(x, k, dim=-1)
     idx, perm = torch.sort(idx, dim=-1)
     vals = vals.gather(-1, perm)
     vals, perm = torch.sort(vals, dim=-1, descending=True, stable=True)
-    return vals, idx.gather(-1, perm)
+    idx = idx.gather(-1, perm)
+    kth = vals[..., -1:]
+    n_above = (vals > kth).sum(dim=-1, keepdim=True)
+    ties_seen = torch.cumsum(x == kth, dim=-1)
+    # slot s >= n_above takes the (s - n_above + 1)-th element equal to kth
+    nth = (torch.arange(1, k + 1, device=x.device) - n_above).clamp(min=1)
+    first = torch.searchsorted(ties_seen, nth)
+    slots = torch.arange(k, device=x.device)
+    return vals, torch.where(slots < n_above, idx, first)
 
 
 def _level_candidates(masked, reg, locations, strides, pre_nms_topk):

@@ -9,7 +9,9 @@ never overlap).
 Dispatch follows the tensors' device: CUDA tensors go to the hand-written
 kernel (``ops/nms_kernel.py``, ``csrc/nms.cu``), CPU tensors to the plain
 PyTorch twin ``nms_select_reference``. ``impl="reference"`` names the twin
-explicitly, for comparisons on the card.
+explicitly, for comparisons on the card. ``nms_select_ranked_reference``
+renders the kernel's own algorithm (rank once, scan in chunks) in plain
+PyTorch for the CPU tests; no path runs it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from . import nms_kernel
 
 NEG_INF = -1e10
+CHUNK = 64  # candidates per chunk of the kernel's ranked scan
 
 
 def nms_select_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -63,6 +66,71 @@ def nms_select_reference(boxes: torch.Tensor, scores: torch.Tensor,
         idx[:, t] = torch.where(ok_t[:, 0], i[:, 0], 0).to(torch.int32)
         ok[:, t] = ok_t[:, 0]
     return idx, ok
+
+
+def _iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU of (..., 5) rows (x1, y1, x2, y2, area) in the twin's order of
+    operations; symmetric bit for bit in its two arguments."""
+    iw = torch.clamp(torch.minimum(a[..., 2], b[..., 2])
+                     - torch.maximum(a[..., 0], b[..., 0]), min=0.0)
+    ih = torch.clamp(torch.minimum(a[..., 3], b[..., 3])
+                     - torch.maximum(a[..., 1], b[..., 1]), min=0.0)
+    inter = iw * ih
+    return inter / torch.clamp(a[..., 4] + b[..., 4] - inter, min=1e-9)
+
+
+def nms_select_ranked_reference(boxes: torch.Tensor, scores: torch.Tensor,
+                                valid: torch.Tensor, iou_threshold: float,
+                                max_outputs: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch rendering of the kernel's algorithm (csrc/nms.cu);
+    same arguments and results as ``nms_select_reference``.
+
+    Greedy picks with a top-``max_outputs`` cap are the walk, in the order
+    (score descending, index ascending), over the alive candidates that
+    keeps a candidate when no kept one has IoU > threshold with it. So:
+
+      1. rank the alive candidates by that order (-0.0 counts as +0.0);
+      2. take the ranked list in chunks of ``CHUNK``; per chunk, mark the
+         members that some earlier kept candidate suppresses, and build
+         the intra-chunk bitmask ``m[i]`` = the later members that member
+         i suppresses;
+      3. resolve the chunk serially on bits: take the lowest unmarked
+         member, keep it, clear the bits of ``m[i]``; stop at
+         ``max_outputs`` kept, possibly mid-chunk.
+
+    It runs on no path; the CPU tests hold it against the references.
+    """
+    b, k = scores.shape
+    s = torch.where(valid, scores.float() + 0.0, NEG_INF)  # -0.0 -> +0.0
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    area = (torch.clamp(x2 - x1, min=0.0) * torch.clamp(y2 - y1, min=0.0))
+    rows = torch.stack([x1, y1, x2, y2, area], dim=-1)       # (B, K, 5)
+    idx = torch.zeros((b, max_outputs), dtype=torch.int32)
+    ok = torch.zeros((b, max_outputs), dtype=torch.bool)
+    for r in range(b):
+        n_alive = int((s[r] > NEG_INF / 2).sum())
+        order = torch.sort(-s[r], stable=True).indices[:n_alive]
+        ranked = rows[r, order]
+        kept = []                       # ranks of the kept candidates
+        for c0 in range(0, n_alive, CHUNK):
+            if len(kept) == max_outputs:
+                break
+            box = ranked[c0:c0 + CHUNK]
+            n = box.shape[0]
+            marked = _iou(box[:, None], ranked[kept][None]) > iou_threshold
+            pending = sum(1 << i for i in range(n)
+                          if not bool(marked[i].any()))
+            over = _iou(box[:, None], box[None]) > iou_threshold
+            m = [sum(1 << j for j in range(i + 1, n) if bool(over[i, j]))
+                 for i in range(n)]
+            while pending and len(kept) < max_outputs:
+                i = (pending & -pending).bit_length() - 1  # lowest set bit
+                kept.append(c0 + i)
+                pending &= ~m[i] & ~(1 << i)
+        idx[r, :len(kept)] = order[kept].to(torch.int32)
+        ok[r, :len(kept)] = True
+    return idx.to(scores.device), ok.to(scores.device)
 
 
 def class_offset_boxes(boxes: torch.Tensor, classes: torch.Tensor,

@@ -12,7 +12,8 @@ INFERENCE_TH_TEST 0.02), warms it up, then:
     classifier, candidate selection (sigmoid, threshold, top-k), NMS,
     and the whole ``__call__`` on the host clock;
   * traces 5 requests with ``torch.profiler`` and reports the device's busy
-    share and the kernels that take the most device time.
+    share, the kernels that take the most device time, and the NMS
+    kernels' own time.
 
 Prints the card's ``name, power.limit`` beside the numbers; the full
 per-kernel table goes to ``--out`` (default profile_serving.txt).
@@ -153,6 +154,10 @@ def main() -> None:
     for name, (ms, n) in kernels[:12]:
         print(f"[profile]   {ms / 5:8.3f} ms/request  x{n // 5:<4d} "
               f"{name[:90]}")
+    for name, (ms, n) in kernels:  # the NMS kernels, wherever they rank
+        if "rank_kernel" in name or "scan_kernel" in name:
+            print(f"[profile]   NMS {ms / 5:8.4f} ms/request  x{n // 5:<4d} "
+                  f"{name[:90]}")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         f.write(f"{card}\n")

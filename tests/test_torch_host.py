@@ -104,12 +104,24 @@ def test_weight_carrier_is_strict():
 def test_kernel_wrapper_refuses_what_it_cannot_take():
     """Checks run before any build: a CPU tensor or too many candidates raise,
     and importing the module built nothing."""
-    assert nms_kernel._lib is None
+    assert not nms_kernel._fns
     planes = [torch.zeros((1, 8)) for _ in range(5)]
     valid = torch.ones((1, 8), dtype=torch.int32)
+    for fn in (nms_kernel.nms_cuda, nms_kernel.nms_cuda_greedy):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(*planes, valid, 0.5, 4)
+    # one 4-byte order key per candidate: K = 57,088 fits, 57,089 does not
+    big = nms_kernel.MAX_DYNAMIC_SMEM // nms_kernel.SMEM_BYTES_PER_CANDIDATE
+    with pytest.raises(ValueError, match=f"K={big + 1}"):
+        nms_kernel.nms_cuda(*[torch.zeros((1, big + 1)) for _ in range(5)],
+                            torch.ones((1, big + 1), dtype=torch.int32),
+                            0.5, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        nms_kernel.nms_cuda(*planes, valid, 0.5, 4)
+        nms_kernel.nms_cuda(*[torch.zeros((1, big)) for _ in range(5)],
+                            torch.ones((1, big), dtype=torch.int32), 0.5, 4)
+    # the first design keeps six planes of K: 24 bytes a candidate
     with pytest.raises(ValueError, match="K=10000"):
-        nms_kernel.nms_cuda(*[torch.zeros((1, 10000)) for _ in range(5)],
-                            torch.ones((1, 10000), dtype=torch.int32), 0.5, 4)
-    assert nms_kernel._lib is None
+        nms_kernel.nms_cuda_greedy(
+            *[torch.zeros((1, 10000)) for _ in range(5)],
+            torch.ones((1, 10000), dtype=torch.int32), 0.5, 4)
+    assert not nms_kernel._fns
