@@ -20,36 +20,61 @@ Phases, in order; any failure raises and the script exits non-zero:
      canvas, 10 shots, a 1280-row code bank) with random weights from a
      fixed seed. Registers 3 classes and answers 5 requests of different
      sizes, one with INFERENCE_TH_TEST = 0 so NMS runs at the full
-     K = 5000. The kernels' launch counts are read around this phase
+     K = 5000, then the same 5 with ``device_preprocess=True`` (the resize
+     on the card). The kernels' launch counts are read around this block
      alone; afterwards each request's detections are held against the same
-     dense outputs decoded with the twin;
+     dense outputs decoded with the twin, each device canvas against the
+     same resize on the CPU (1e-3 on the 0-255 scale), and host and device
+     preprocessing are timed side by side;
   5. card against CPU: the same predictor in float32 at a 256x256 canvas
      on cuda and on cpu; dense outputs to rtol 1e-3 / atol 5e-3, detections
-     to boxes 0.05, scores 1e-3, equal classes.
+     to boxes 0.05, scores 1e-3, equal classes;
+  6. the two-phase meta-test at full width: the same config in bf16 with
+     EVAL_BATCH 8 and CLASS_BATCH 8, on a synthetic COCO tree made by
+     ``sylph_tpu_torch.data.synthetic`` (48 train and 20 + 2 empty val
+     images of 480x640). ``MetaFCOSRunner.do_test`` runs once to warm up,
+     then again with the counts read around it, on coco_meta_val_novel and
+     coco_meta_val_all (the latter with all-GT base codes); REPEAT_TEST is
+     cut from 5 to 1 for time. Checks: one NMS launch per query batch,
+     each batch's detections equal to the same dense outputs decoded with
+     the twin (the padded tail batch included), one ``.npz`` per class,
+     the directory reloaded through ``SylphPredictor(class_code_path=...)``
+     reproducing the normalized bank to 1e-6, and a complete AP dict.
 
 The last lines are the card's ``name, power.limit``, one JSON object
-listing every kernel with its launches, error and times (``earlier_ms``:
-the first design's time on the main path's NMS input), and
+listing every kernel with its launches (in all and by path), error and
+times (``earlier_ms``: the first design's time on the serving path's NMS
+input; ``meta_test_ms``: the kernel on a B=8 meta-test batch), and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from sylph_tpu_torch import get_default_cfg
+from sylph_tpu_torch.data.catalog import register_all_coco
+from sylph_tpu_torch.data.synthetic import make_synthetic_coco
+from sylph_tpu_torch.evaluation import meta_eval
 from sylph_tpu_torch.ops import nms_kernel
 from sylph_tpu_torch.ops.decode import select_candidates
+from sylph_tpu_torch.ops.image_ops import resize_shortest_edge_device
 from sylph_tpu_torch.ops.nms import (batched_multiclass_nms,
                                      class_offset_boxes,
                                      nms_select_reference)
 from sylph_tpu_torch.predictor import SylphPredictor
+from sylph_tpu_torch.runner import MetaFCOSRunner
+from sylph_tpu_torch.tools.profile_meta_test import DATA as META_TEST_DATA
+from sylph_tpu_torch.tools.profile_meta_test import meta_test_cfg
 
 CONFIG = "sylph://COCO-Detection/Meta-FCOS/Meta-FCOS-finetune.yaml"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit).
@@ -168,9 +193,11 @@ def walk_tests(scores, valid, idx, ok) -> int:
         s = torch.where(valid[r], scores[r] + 0.0, -1e10)
         n = int((s > -5e9).sum())
         order = torch.sort(-s, stable=True).indices[:n]
-        rank = torch.empty_like(order)
+        rank = torch.full_like(s, -1, dtype=torch.long)
         rank[order] = torch.arange(n, device=order.device)
         kept = rank[idx[r][ok[r]].long()]
+        if kept.numel() == 0:  # nothing alive in this image
+            continue
         reached = int(kept.max()) + 1 if int(ok[r].sum()) == idx.shape[1] \
             else n
         tests += int((reached - 1 - kept).sum())
@@ -281,31 +308,33 @@ def phase_serving(device: str = "cuda"):
     pred = SylphPredictor(cfg=cfg, device=device)
     rng = np.random.RandomState(0)
     shots = cfg.MODEL.META_LEARN.EVAL_SHOT
-    sizes = [(480, 640), (800, 1216), (720, 1280), (1024, 768)]
+    sizes = [(480, 640), (800, 1216), (720, 1280), (1024, 768), (600, 900)]
     images = [random_image(rng, h, w) for h, w in sizes]
-    full_k_image = random_image(rng, 600, 900)
     th = pred.decode_cfg.pre_nms_thresh
+    # the last request runs with INFERENCE_TH_TEST = 0: NMS at full K
+    requests = [(img, i == len(images) - 1, dev_pre)
+                for dev_pre in (False, True) for i, img in enumerate(images)]
+
+    def set_thresh(full_k):
+        pred.decode_cfg = pred.decode_cfg._replace(
+            pre_nms_thresh=0.0 if full_k else th)
 
     # ---- the main path: counts are read around this block alone
     nms_kernel.LAUNCHES = 0
     reg_ms = register(pred, rng, ["class_a", "class_b", "class_c"], shots)
     results, lat_ms = [], []
-    for img in images:
+    for img, full_k, dev_pre in requests:
+        set_thresh(full_k)
         t0 = time.perf_counter()
-        results.append(pred(img))
+        results.append(pred(img, device_preprocess=dev_pre))
         lat_ms.append((time.perf_counter() - t0) * 1e3)
-    pred.decode_cfg = pred.decode_cfg._replace(pre_nms_thresh=0.0)
-    t0 = time.perf_counter()
-    results.append(pred(full_k_image))
-    lat_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"nms": nms_kernel.LAUNCHES}
+    launches = nms_kernel.LAUNCHES
     # ---- end of the main path
 
     log(f"[serve] registration ms per class ({shots} shots at "
         f"{tuple(cfg.TPU.SUPPORT_CANVAS)}): "
         + ", ".join(f"{t:.1f}" for t in reg_ms))
-    for (h, w), t, res in zip(sizes + [full_k_image.shape[:2]], lat_ms,
-                              results):
+    for (img, full_k, dev_pre), t, res in zip(requests, lat_ms, results):
         n = len(res["scores"])
         if not (np.isfinite(res["boxes"]).all()
                 and np.isfinite(res["scores"]).all()):
@@ -313,24 +342,26 @@ def phase_serving(device: str = "cuda"):
         if res["boxes"].shape != (n, 4) or not set(res["class_names"]) <= {
                 "class_a", "class_b", "class_c"}:
             raise AssertionError("malformed detections")
-        log(f"[serve] request {h}x{w}: {t:.1f} ms, {n} detections")
-    if results[-1]["scores"].shape[0] != pred.decode_cfg.post_nms_topk:
-        raise AssertionError("the INFERENCE_TH_TEST=0 request should fill "
-                             "every NMS slot")
-    log(f"[serve] launches on the main path: {launches}")
+        if full_k and n != pred.decode_cfg.post_nms_topk:
+            raise AssertionError("the INFERENCE_TH_TEST=0 request should "
+                                 "fill every NMS slot")
+        h, w = img.shape[:2]
+        log(f"[serve] request {h}x{w} "
+            f"({'device' if dev_pre else 'host'} preprocessing): "
+            f"{t:.1f} ms, {n} detections")
+    log(f"[serve] NMS launches on the main path: {launches}")
 
     # ---- comparisons (their launches do not count)
     timing = None
-    for i, img in enumerate(images + [full_k_image]):
-        full_k = i == len(images)
-        pred.decode_cfg = pred.decode_cfg._replace(
-            pre_nms_thresh=0.0 if full_k else th)
-        canvas, size, _ = pred.prepare(img)
+    for i, (img, full_k, dev_pre) in enumerate(requests):
+        set_thresh(full_k)
+        prep = pred.prepare_device if dev_pre else pred.prepare
+        canvas, size, _ = prep(img)
         out = pred.dense(canvas)
         got = pred.decode(out, size, pred.bank.valid)
         want = pred.decode(out, size, pred.bank.valid, nms_impl="reference")
         check_detections_equal(got, want, f"request {i}")
-        if full_k:
+        if full_k and not dev_pre:
             with torch.inference_mode():
                 cand = select_candidates(
                     out.logits, out.reg, out.ctrness, out.iou,
@@ -352,7 +383,46 @@ def phase_serving(device: str = "cuda"):
                 f"candidates, {live} of them valid")
             timing = time_nms_on(cand, pred.decode_cfg)
     log("[serve] every request's detections equal the twin-decoded ones")
+    check_device_preprocess(pred, images)
     return launches, timing
+
+
+def check_device_preprocess(pred: SylphPredictor, images) -> None:
+    """Each canvas ``prepare_device`` makes on the card against the same
+    resize on the CPU, then host ``prepare`` and ``prepare_device`` timed
+    on the same frames."""
+    cfg = pred.cfg
+    for img in images:
+        oh, ow = img.shape[:2]
+        got, _, (_, _, rh, rw) = pred.prepare_device(img)
+        want, want_hw = resize_shortest_edge_device(
+            torch.as_tensor(np.ascontiguousarray(img[:, :, ::-1])), (oh, ow),
+            out_hw=pred.eval_canvas, short=cfg.INPUT.MIN_SIZE_TEST,
+            max_size=cfg.INPUT.MAX_SIZE_TEST)
+        err = float((got[0].cpu() - want).abs().max())
+        if [rh, rw] != want_hw.tolist() or err > 1e-3:
+            raise AssertionError(f"device resize of {oh}x{ow}: content "
+                                 f"{[rh, rw]} vs {want_hw.tolist()}, max "
+                                 f"error {err}")
+        host_ms = time_host(lambda: pred.prepare(img))
+        dev_ms = time_host(lambda: pred.prepare_device(img))
+        log(f"[preprocess] {oh}x{ow} -> {[rh, rw]}: canvas on cuda = cpu "
+            f"within {err:.2e}; host prepare {host_ms:.2f} ms, device "
+            f"prepare {dev_ms:.2f} ms (median of 7)")
+
+
+def time_host(fn, reps: int = 7) -> float:
+    """Median wall time of ``fn`` in ms, the card synchronized around each
+    call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
 
 
 def time_nms_on(cand, dcfg):
@@ -388,6 +458,128 @@ def time_nms_on(cand, dcfg):
 
 
 # ----------------------------------------------------------- card vs CPU
+def time_nms_meta(args, kwargs):
+    """The kernel's CUDA-graph time and bound on one meta-test query batch,
+    from the arguments its ``decode_proposals`` call was given."""
+    logits, reg, ctr, iou, locs, strides, _, dcfg, splits = args
+    with torch.inference_mode():
+        cand = select_candidates(logits, reg, ctr, iou, locs, strides, dcfg,
+                                 splits, kwargs.get("class_valid"))
+    m, thr = dcfg.post_nms_topk, dcfg.nms_thresh
+    _, *planes = nms_planes(cand.boxes, cand.scores, cand.classes,
+                            cand.valid)
+    ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, thr, m), 50,
+                 graph=True)
+    idx, ok = nms_kernel.nms_cuda(*planes, thr, m)
+    bound_ms, bound_by = nms_bound_ms(cand.scores, cand.valid, idx,
+                                      ok.bool())
+    b, k = cand.scores.shape
+    log(f"[nms] meta-test input B={b} K={k} M={m} "
+        f"({int(cand.valid.sum())} valid): kernel {ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+    return ms, bound_ms, bound_by
+
+
+# ------------------------------------------------------------- meta-test
+def check_ap_dict(name: str, bbox: dict, class_names) -> None:
+    want = ["AP", "AP50", "AP75", "APs", "APm", "APl", "AR@1", "AR@10",
+            "AR@100"] + [f"AP-{c}" for c in class_names]
+    if name.endswith("_all"):
+        want += ["nAP", "bAP"]
+    want += [f"{k}_std" for k in want]
+    missing = [k for k in want if not isinstance(bbox.get(k), float)]
+    if missing:
+        raise AssertionError(f"{name}: AP dict lacks {missing}")
+
+
+def phase_meta_test(work: str):
+    """The two-phase meta-test at full width; returns its NMS launches and
+    the kernel's time on one of its B=8 batches."""
+    root = os.path.join(work, "coco")
+    make_synthetic_coco(root, **META_TEST_DATA)
+    register_all_coco(root)
+    cfg = meta_test_cfg(os.path.join(work, "out"))
+    runner = MetaFCOSRunner()
+    model = runner.build_model(cfg)
+    t0 = time.perf_counter()
+    runner.do_test(cfg, model)  # warm-up: cuDNN plans, the g++ matcher
+    log(f"[meta-test] warm-up do_test: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(cfg.OUTPUT_DIR)
+
+    recorded = []
+    decode = meta_eval.decode_proposals
+
+    def recording(*args, **kwargs):
+        det = decode(*args, **kwargs)
+        recorded.append((args, kwargs, det))
+        return det
+
+    meta_eval.decode_proposals = recording
+    try:
+        # ---- the main path: counts are read around this block alone
+        nms_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        results = runner.do_test(cfg, model)
+        wall = time.perf_counter() - t0
+        launches = nms_kernel.LAUNCHES
+        # ---- end of the main path
+    finally:
+        meta_eval.decode_proposals = decode
+
+    batches = 0
+    for name, res in results.items():
+        driver = runner.drivers[name]
+        st = driver.stats
+        meta = driver.dataset_dict["metadata"]
+        n_query = len(driver.dataset_dict[-1])
+        batches += -(-n_query // cfg.TPU.EVAL_BATCH)
+        check_ap_dict(name, res["bbox"], meta["thing_classes"])
+        supported = [meta["thing_classes"][c] for c in driver.dataset_dict
+                     if isinstance(c, int) and c >= 0]
+        code_dir = os.path.join(cfg.OUTPUT_DIR, "class_codes", name)
+        files = sorted(os.listdir(code_dir))
+        if files != sorted(f"{c}.npz" for c in supported):
+            raise AssertionError(f"{name}: class code files {files}")
+        log(f"[meta-test] {name}: {int(st['classes'])} classes, "
+            f"{int(st['query_images'])} query images in "
+            f"{int(st['query_batches'])} batches of {cfg.TPU.EVAL_BATCH}; "
+            f"AP {res['bbox']['AP']:.4f}, AP50 {res['bbox']['AP50']:.4f}")
+        log(f"[meta-test] {name} times (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in st.items()
+            if k.endswith("_s")))
+        log(f"[meta-test] {name}: code generation "
+            f"{st['codegen_s'] / st['classes'] * 1e3:.2f} ms per class "
+            f"({cfg.TPU.CLASS_BATCH} classes per call), query "
+            f"{st['query_images'] / st['query_s']:.2f} img/s at B="
+            f"{cfg.TPU.EVAL_BATCH}")
+    log(f"[meta-test] do_test on both datasets: {wall:.2f} s on the host "
+        f"clock; NMS launches {launches}")
+    if launches != batches or len(recorded) != batches:
+        raise AssertionError(f"expected {batches} NMS launches (one per "
+                             f"query batch), got {launches} "
+                             f"({len(recorded)} decode calls)")
+    for i, (args, kwargs, det) in enumerate(recorded):
+        want = decode(*args, **dict(kwargs, nms_impl="reference"))
+        check_detections_equal(det, want, f"meta-test batch {i}")
+    log(f"[meta-test] all {batches} query batches equal the twin-decoded "
+        "ones, the padded tail batches included")
+
+    novel = "coco_meta_val_novel"
+    pred = SylphPredictor(cfg=cfg, model=model, class_code_path=os.path.join(
+        cfg.OUTPUT_DIR, "class_codes", novel))
+    bank = runner.drivers[novel].bank
+    n = bank["cls_conv"].shape[0]
+    for key, got in (("cls_conv", pred.bank.conv[:n]),
+                     ("cls_bias", pred.bank.bias[:n])):
+        np.testing.assert_allclose(got.cpu().numpy(), bank[key], rtol=0,
+                                   atol=1e-6, err_msg=key)
+    log(f"[meta-test] {novel}: the .npz directory reloads into the "
+        f"predictor's bank equal to the driver's ({n} rows, 1e-6)")
+    meta_ms, meta_bound, meta_by = time_nms_meta(*recorded[0][:2])
+    return launches, dict(meta_test_ms=meta_ms, meta_test_bound_ms=meta_bound,
+                          meta_test_bound_by=meta_by)
+
+
 def phase_card_vs_cpu(devices=("cuda", "cpu")) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -428,6 +620,7 @@ def phase_card_vs_cpu(devices=("cuda", "cpu")) -> None:
 
 
 def main() -> int:
+    os.environ.pop("SYLPH_TEST_MODE", None)  # it would cut the query set
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -446,16 +639,25 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     max_err = phase_nms_against_twin()
-    launches, timing = phase_serving()
+    serve_launches, timing = phase_serving()
     phase_card_vs_cpu()
+    # the meta-test's files live in a scratch directory of their own
+    work = tempfile.mkdtemp(prefix="sylph_meta_test_")
+    try:
+        meta_launches, meta_timing = phase_meta_test(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
-    if launches["nms"] < 1:
-        raise AssertionError("the main path never launched the NMS kernel")
+    by_path = {"serve": serve_launches, "meta_test": meta_launches}
+    if min(by_path.values()) < 1:
+        raise AssertionError(f"a path never launched the NMS kernel: "
+                             f"{by_path}")
     kernels = [dict(name="nms", route="cuda",
                     source="sylph_tpu_torch/csrc/nms.cu",
                     replaces="sylph_tpu/ops/nms_pallas.py:96",
-                    launches=launches["nms"], max_abs_err=max_err,
-                    library_ms=None, **timing)]
+                    launches=sum(by_path.values()),
+                    launches_by_path=by_path, max_abs_err=max_err,
+                    library_ms=None, **timing, **meta_timing)]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
-"""Host-side image transforms for serving (port of the two eval-path
-functions of sylph_tpu/data/transforms.py).
+"""Host-side image transforms for serving and the meta-test (port of the
+eval-path functions of sylph_tpu/data/transforms.py; the training
+augmentations belong to the training slice).
 
 Both return numpy arrays; the device sees only the fixed canvas.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 from PIL import Image
@@ -24,15 +25,23 @@ def resize_shortest_edge(img: np.ndarray, boxes: np.ndarray,
     return np.asarray(pil), boxes * scale
 
 
-def pad_to_canvas(img: np.ndarray, canvas_hw: Tuple[int, int]) -> np.ndarray:
+def pad_to_canvas(img: np.ndarray, canvas_hw: Tuple[int, int],
+                  out: Optional[np.ndarray] = None) -> np.ndarray:
     """Zero-pad bottom/right to the static canvas (ImageList semantics).
 
     ``img`` may be any strided view (a channel reversal, say): the single
-    assignment materializes it.
+    assignment materializes it. ``out`` (the canvas's shape and dtype)
+    receives the result in place: the loaders pass slots of a reused batch
+    buffer (``data/loader.py::_BufferPool``).
     """
     h, w = img.shape[:2]
     ch, cw = canvas_hw
     assert h <= ch and w <= cw, (img.shape, canvas_hw)
-    out = np.zeros((ch, cw, 3), img.dtype)
+    if out is None:
+        out = np.zeros((ch, cw, 3), img.dtype)
+    else:
+        assert out.shape == (ch, cw, 3), (out.shape, canvas_hw)
+        out[h:] = 0
+        out[:h, w:] = 0
     out[:h, :w] = img
     return out

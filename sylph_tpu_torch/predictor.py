@@ -3,7 +3,14 @@ sylph_tpu/predictor.py).
 
   * ``register_class(name, support_images, boxes)`` adds a class to the
     bank with no gradient step: raw code, then ``normalize_code``;
-  * ``__call__(image)`` detects the registered classes;
+  * ``SylphPredictor(class_code_path=dir)`` loads one ``{class}.npz`` of
+    raw codes per class (as the meta-test saves them, in either package)
+    and normalizes them into the bank;
+  * ``generate_class_codes_from_dataset(name)`` registers every class of
+    a registered dataset from its K-shot support sets;
+  * ``__call__(image, device_preprocess=False)`` detects the registered
+    classes; ``device_preprocess=True`` resizes on the card
+    (``ops/image_ops.py``) when the frame fits the eval canvas;
   * ``detect_base(image)`` runs the plain base detector.
 
 The code bank is preallocated on the device with ``TPU.MAX_CLASSES`` rows
@@ -13,6 +20,7 @@ rebuilds nothing.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -22,8 +30,10 @@ from .config import get_default_cfg
 from .data.transforms import pad_to_canvas, resize_shortest_edge
 from .models.fcos_head import HeadOutputs
 from .ops.decode import decode_proposals
+from .ops.image_ops import resize_shortest_edge_device
 from .ops.locations import build_location_grid
-from .runner import _decode_cfg, build_model_from_cfg, resolve_device
+from .runner import (_decode_cfg, _mapper, build_model_from_cfg,
+                     resolve_device)
 from .structures import Detections
 
 
@@ -73,9 +83,6 @@ class SylphPredictor:
         if runner_name != "MetaFCOSRunner":
             raise NotImplementedError(f"runner {runner_name} is not ported "
                                       "yet")
-        if class_code_path:
-            raise NotImplementedError("loading class codes from .npz is not "
-                                      "ported yet")
         self.device = resolve_device(device)
         if cfg is None:
             cfg = get_default_cfg()
@@ -100,8 +107,39 @@ class SylphPredictor:
         self.strides = torch.as_tensor(grid.strides, device=self.device)
         self.level_splits = tuple(h * w for h, w in grid.level_sizes)
         self.decode_cfg = _decode_cfg(cfg)
+        self.mapper = _mapper(cfg)
         self.bank = ClassCodeBank(max_classes or cfg.TPU.MAX_CLASSES,
                                   device=self.device)
+        if class_code_path:
+            self._load_codes(class_code_path)
+
+    # ------------------------------------------------------------- code IO
+    def _load_codes(self, path: str) -> None:
+        """Add every ``{class}.npz`` of a directory to the bank, in file
+        name order. The files hold RAW codes (the meta-test saves them
+        before normalization), so they are normalized here as
+        ``register_class`` does, unless the code generator is the
+        ROIEncoder, which emits final codes."""
+        names, convs, biases = [], [], []
+        for fname in sorted(os.listdir(path)):
+            if not fname.endswith(".npz"):
+                continue
+            data = np.load(os.path.join(path, fname))
+            names.append(fname[:-4])
+            convs.append(np.asarray(data["cls_conv"], np.float32).reshape(-1))
+            biases.append(np.asarray(data["cls_bias"], np.float32)
+                          .reshape(()))
+        if not names:
+            return
+        code = {"cls_conv": torch.as_tensor(np.stack(convs),
+                                            device=self.device),
+                "cls_bias": torch.as_tensor(np.stack(biases),
+                                            device=self.device)}
+        if self.model.code_generator_name != "ROIEncoder":
+            with torch.inference_mode():
+                code = self.model.normalize_code(code)
+        for i, name in enumerate(names):
+            self.bank.add(name, code["cls_conv"][i], code["cls_bias"][i])
 
     # ------------------------------------------------------ registration
     @torch.inference_mode()
@@ -157,6 +195,32 @@ class SylphPredictor:
         size = torch.tensor([[rh, rw]], device=self.device)
         return canvas, size, (oh, ow, rh, rw)
 
+    def prepare_device(self, image: np.ndarray):
+        """``prepare`` with the resize on the card: the raw RGB frame is
+        uploaded as it is, its channels are reversed to BGR there and
+        ``resize_shortest_edge_device`` resizes it into a float32 canvas.
+        Returns None when the frame is larger than the eval canvas: the
+        caller then takes the host path, as the JAX package does.
+
+        The JAX package stages the frame into an eval-canvas-sized buffer
+        so that one compiled graph serves every frame size; eager torch has
+        no such constraint, so the frame itself is the staging tensor and
+        the host does no copy beyond the upload."""
+        img = np.ascontiguousarray(image)
+        oh, ow = img.shape[:2]
+        if oh > self.eval_canvas[0] or ow > self.eval_canvas[1]:
+            return None
+        frame = torch.as_tensor(img, device=self.device)
+        if self.cfg.INPUT.FORMAT == "BGR":
+            frame = frame.flip(-1)  # input assumed RGB; model wants BGR
+        canvas, content = resize_shortest_edge_device(
+            frame, (oh, ow), out_hw=self.eval_canvas,
+            short=self.cfg.INPUT.MIN_SIZE_TEST,
+            max_size=self.cfg.INPUT.MAX_SIZE_TEST)
+        rh, rw = int(content[0]), int(content[1])
+        size = torch.tensor([[rh, rw]], device=self.device)
+        return canvas[None], size, (oh, ow, rh, rw)
+
     @torch.inference_mode()
     def dense(self, canvas: torch.Tensor) -> HeadOutputs:
         """Conditioned dense head outputs against the whole bank."""
@@ -173,10 +237,11 @@ class SylphPredictor:
 
     def __call__(self, image: np.ndarray,
                  device_preprocess: bool = False) -> Dict:
-        """Detect registered classes in one RGB image."""
-        if device_preprocess:
-            raise NotImplementedError("device_preprocess is not ported yet")
-        canvas, size, hw = self.prepare(image)
+        """Detect registered classes in one RGB image. With
+        ``device_preprocess`` the resize runs on the card when the frame
+        fits the eval canvas, on the host otherwise."""
+        prepared = self.prepare_device(image) if device_preprocess else None
+        canvas, size, hw = prepared or self.prepare(image)
         det = self.decode(self.dense(canvas), size,
                           class_valid=self.bank.valid)
         return self._format(det.numpy(), *hw)
@@ -199,8 +264,27 @@ class SylphPredictor:
     def generate_class_codes_from_dataset(self, dataset_name: str,
                                           shot: Optional[int] = None,
                                           meta_test_seed: int = 0) -> int:
-        raise NotImplementedError("registering from a dataset needs the "
-                                  "data layer, which is not ported yet")
+        """Register every class of a registered dataset from its K-shot
+        support sets (reference _generate_class_code_from_dataset,
+        predictor.py:134-161). Returns the number of classes added."""
+        from .data.catalog import DatasetCatalog
+        from .data.loader import build_support_set_loader
+        from .data.meta_dataset import MetaDataset
+        from .evaluation.meta_eval import (generate_class_codes,
+                                           normalize_class_codes)
+
+        shot = shot or self.cfg.MODEL.META_LEARN.EVAL_SHOT
+        ds = MetaDataset(DatasetCatalog.get(dataset_name),
+                         "episodic_test_supportset", num_shot=shot,
+                         meta_test_seed=meta_test_seed)
+        codes = generate_class_codes(
+            self.model, build_support_set_loader(ds, self.mapper),
+            class_batch=self.cfg.TPU.CLASS_BATCH, device=self.device)
+        bank = normalize_class_codes(self.model, codes, device=self.device)
+        for row, cid in enumerate(sorted(codes)):
+            self.bank.add(codes[cid]["class_name"], bank["cls_conv"][row],
+                          bank["cls_bias"][row])
+        return len(codes)
 
     def _format(self, det: Detections, oh, ow, rh, rw) -> Dict:
         sx, sy = ow / rw, oh / rh

@@ -36,5 +36,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     expected = {"sylph_tpu_torch.predictor", "sylph_tpu_torch.runner",
                 "sylph_tpu_torch.ops.nms_kernel",
                 "sylph_tpu_torch.models.meta_arch",
-                "sylph_tpu_torch.utils.convert_weights", "chip_smoke"}
+                "sylph_tpu_torch.utils.convert_weights",
+                "sylph_tpu_torch.evaluation.meta_eval",
+                "sylph_tpu_torch.data.loader",
+                "sylph_tpu_torch.ops.image_ops", "chip_smoke"}
     assert expected <= set(report["imported"])
