@@ -39,7 +39,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      each batch's detections equal to the same dense outputs decoded with
      the twin (the padded tail batch included), one ``.npz`` per class,
      the directory reloaded through ``SylphPredictor(class_code_path=...)``
-     reproducing the normalized bank to 1e-6, and a complete AP dict.
+     reproducing the normalized bank to 1e-6, and a complete AP dict;
+  7. training, card against CPU (fp32, TF32 off): R-50 at full depth at a
+     256x256 train canvas, one fixed episodic batch (2 episodes x 2 shots
+     at 128x128) and one fixed pretrain batch (2 images), both with drawn
+     device RandAugment ops, 2 steps on cuda and 2 on cpu from the same
+     weights: the augmented canvases equal byte for byte, the assigner's
+     labels equal, per-step losses within rtol 1e-3, parameters after within
+     atol 1e-4, frozen parameters bit-identical on both devices;
+  8. episodic meta-training at full width: the finetune config as
+     ``auto_scale_world_size`` leaves it on one card (48 episodes x 5 shots
+     at 384x384, one 1024x1024 query each, TPU.GRAD_ACCUM 16, clip 1.0,
+     bf16, device RandAugment, backbone and bbox branch frozen), from the
+     flax initializers' distributions on the meta-test's synthetic tree:
+     ``do_train`` for 1 warm-up and 3 counted steps. Every loss finite,
+     frozen parameters bit-identical to their start, the code generator and
+     cls tower moved, and a checkpoint saved, restored into a fresh model
+     and stepped once equal to the same step uninterrupted;
+  9. pretraining at full width: the pretrain config (trainable R-50, 1024x
+     1024 canvas, batch 128 in micro-batches of TPU.PRETRAIN_MICRO_BATCH 8),
+     1 warm-up and 2 counted steps, every loss finite and the backbone moved.
+     Phases 8 and 9 each print a ``train`` JSON line (median step ms, data
+     and step wait, images per second, peak memory, losses, the card).
+     Training never reaches the NMS kernel: its launches there must be 0.
 
 The last lines are the card's ``name, power.limit``, one JSON object
 listing every kernel with its launches (in all and by path), error and
@@ -72,9 +94,18 @@ from sylph_tpu_torch.ops.nms import (batched_multiclass_nms,
                                      class_offset_boxes,
                                      nms_select_reference)
 from sylph_tpu_torch.predictor import SylphPredictor
-from sylph_tpu_torch.runner import MetaFCOSRunner
+from sylph_tpu_torch.ops.assigner import assign_fcos_targets
+from sylph_tpu_torch.ops.image_aug import rand_augment_device
+from sylph_tpu_torch.ops.locations import build_location_grid
+from sylph_tpu_torch.runner import (MetaFCOSRunner, _freeze_cfg,
+                                    build_model_from_cfg)
+from sylph_tpu_torch.data.loader import batch_to_device
+from sylph_tpu_torch.data.transforms import draw_rand_augment
 from sylph_tpu_torch.tools.profile_meta_test import DATA as META_TEST_DATA
 from sylph_tpu_torch.tools.profile_meta_test import meta_test_cfg
+from sylph_tpu_torch.tools.profile_train import train_cfg
+from sylph_tpu_torch.train.checkpoint import CheckpointManager
+from sylph_tpu_torch.utils.events import peak_memory_gb
 
 CONFIG = "sylph://COCO-Detection/Meta-FCOS/Meta-FCOS-finetune.yaml"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit).
@@ -619,6 +650,240 @@ def phase_card_vs_cpu(devices=("cuda", "cpu")) -> None:
         f"{int(kc.sum())} detections agree")
 
 
+# ------------------------------------------------------------- training
+def _fixed_train_batch(episodic: bool, canvas, support, max_gt: int):
+    """One batch from a numpy seed: uint8 canvases, GT boxes, drawn
+    RandAugment ops (episodic: 2 episodes x 2 shots, 1 query each;
+    pretrain: 2 images)."""
+    rng = np.random.RandomState(11)
+    n = 2
+    xy = rng.uniform(0, canvas[0] * 0.5, (n, max_gt, 2))
+    wh = rng.uniform(24, canvas[0] * 0.5, (n, max_gt, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    valid = np.zeros((n, max_gt), bool)
+    valid[:, :5] = True
+    ids = np.array([3, 7], np.int32)
+    labels = rng.randint(0, 10, (n, max_gt)).astype(np.int32)
+    labels[:, 0], labels[:, 1] = ids, ids[::-1]
+    drawn = [draw_rand_augment(np.random.RandomState(20 + i))
+             for i in range(n)]
+    sizes = np.array([[canvas[0] - 17, canvas[1] - 5],
+                      [canvas[0] - 40, canvas[1]]], np.int32)
+    images = np.zeros((n, *canvas, 3), np.uint8)
+    for i, (h, w) in enumerate(sizes):
+        images[i, :h, :w] = rng.randint(0, 256, (h, w, 3))
+    aug = (np.stack([d[0] for d in drawn]), np.stack([d[1] for d in drawn]),
+           sizes)
+    if not episodic:
+        return {"images": images, "gt_boxes": boxes, "gt_labels": labels,
+                "gt_valid": valid, "aug_ops": aug[0], "aug_params": aug[1],
+                "image_sizes": aug[2]}
+    sx = rng.uniform(4, support[0] * 0.4, (2 * n, 2))
+    return {
+        "support_images": rng.randint(0, 256, (2 * n, *support, 3)).astype(
+            np.uint8),
+        "support_boxes": np.concatenate([sx, sx + support[0] * 0.5],
+                                        -1).astype(np.float32),
+        "support_box_valid": np.ones((2 * n,), bool),
+        "query_images": images, "query_gt_boxes": boxes,
+        "query_gt_labels": labels, "query_gt_valid": valid,
+        "episode_class_ids": ids, "query_aug_ops": aug[0],
+        "query_aug_params": aug[1], "query_image_sizes": aug[2]}
+
+
+def _train_small_cfg(episodic: bool):
+    cfg = get_default_cfg()
+    cfg.merge_from_file(CONFIG if episodic else
+                        "sylph://COCO-Detection/Meta-FCOS/"
+                        "Meta-FCOS-pretrain.yaml")
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.TRAIN_CANVAS = [256, 256]
+    cfg.TPU.SUPPORT_CANVAS = [128, 128]
+    cfg.TPU.MAX_GT_BOXES = 20
+    cfg.MODEL.META_LEARN.SHOT = 2
+    cfg.SOLVER.IMS_PER_BATCH = 2
+    cfg.SOLVER.WARMUP_ITERS = 0  # the configs' full LR: parameters move
+    cfg.OUTPUT_DIR = ""
+    return cfg
+
+
+def phase_train_card_vs_cpu(devices=("cuda", "cpu")) -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for episodic in (True, False):
+        mode = "episodic" if episodic else "pretrain"
+        cfg = _train_small_cfg(episodic)
+        batch = _fixed_train_batch(episodic, tuple(cfg.TPU.TRAIN_CANVAS),
+                                   tuple(cfg.TPU.SUPPORT_CANVAS),
+                                   cfg.TPU.MAX_GT_BOXES)
+        img_key = "query_images" if episodic else "images"
+        pre = "query_" if episodic else ""
+        grid = build_location_grid(tuple(cfg.TPU.TRAIN_CANVAS),
+                                   tuple(cfg.MODEL.FCOS.FPN_STRIDES),
+                                   list(cfg.MODEL.FCOS.SIZES_OF_INTEREST))
+        runs = []
+        for dev in devices:
+            runner = MetaFCOSRunner(device=dev)
+            model = build_model_from_cfg(cfg, device=dev, init="train")
+            start = {k: v.clone() for k, v in model.state_dict().items()}
+            state, _, _ = runner._common_train_setup(cfg, model)
+            step = runner.make_train_step(cfg, model)
+            b = batch_to_device(batch, dev)
+            canvas = rand_augment_device(
+                b[img_key], batch[pre + "aug_ops"], batch[pre + "aug_params"],
+                batch[pre + "image_sizes"]).cpu()
+            gt = b[pre + "gt_boxes"], b[pre + "gt_labels"], b[pre + "gt_valid"]
+            labels = assign_fcos_targets(
+                *(torch.as_tensor(a, device=dev) for a in (
+                    grid.locations, grid.strides, grid.size_ranges)),
+                *gt).labels.cpu()
+            losses = [{k: float(v) for k, v in step(state, b)[1].items()}
+                      for _ in range(2)]
+            runs.append((canvas, labels, losses, {
+                k: v.detach().cpu() for k, v in model.state_dict().items()},
+                set(state.tx.names), {k: v.cpu() for k, v in start.items()}))
+        (cg, lg, los_g, pg, train_g, start), (cc, lc, los_c, pc, _, _) = runs
+        if not torch.equal(cg, cc):
+            raise AssertionError(f"{mode}: RandAugment canvases differ "
+                                 "between cuda and cpu")
+        if not torch.equal(lg, lc) or int((lc >= 0).sum()) == 0:
+            raise AssertionError(f"{mode}: assigner labels differ")
+        for i, (a, c) in enumerate(zip(los_g, los_c)):
+            for k in c:
+                if not (np.isfinite(a[k]) and abs(a[k] - c[k])
+                        <= 1e-3 * abs(c[k])):
+                    raise AssertionError(f"{mode} step {i} {k}: cuda {a[k]} "
+                                         f"cpu {c[k]}")
+        worst = 0.0
+        for k, v in pc.items():
+            if k in train_g:
+                worst = max(worst, float((pg[k] - v).abs().max()))
+            elif not (torch.equal(pg[k], start[k]) and torch.equal(v,
+                                                                   start[k])):
+                raise AssertionError(f"{mode}: frozen {k} changed")
+        if worst > 1e-4:
+            raise AssertionError(f"{mode}: parameters differ by {worst}")
+        log(f"[train-card-vs-cpu] {mode}: canvases equal, "
+            f"{int((lc >= 0).sum())} positive labels equal, losses "
+            f"{[{k: round(v, 5) for k, v in s.items()} for s in los_g]} "
+            f"within rtol 1e-3, trained parameters within {worst:.2e}, "
+            f"frozen bit-identical")
+
+
+def _train_line(mode: str, cfg, runner, counted, images_per_step, card):
+    """The ``train`` JSON line of one full-width run."""
+    times = runner.loop_times[-counted:]
+    steps_ms = [1e3 * (d + s) for d, s in times]
+    return {"train": mode, "config": os.path.basename(
+        CONFIG if mode == "episodic" else "Meta-FCOS-pretrain.yaml"),
+        "batch": cfg.SOLVER.IMS_PER_BATCH,
+        "grad_accum": cfg.TPU.GRAD_ACCUM,
+        "counted_steps": counted,
+        "median_step_ms": float(np.median(steps_ms)),
+        "step_ms": steps_ms,
+        "data_wait_ms": [1e3 * d for d, _ in times],
+        "step_wait_ms": [1e3 * s for _, s in times],
+        "images_per_s": float(images_per_step
+                              / (np.median(steps_ms) / 1e3)),
+        "peak_memory_gb": peak_memory_gb(),
+        "losses": runner.train_metrics[-counted:], "card": card}
+
+
+def phase_train_episodic(work: str, card: str):
+    """Meta-training at full width; returns its NMS launches and the
+    ``train`` line."""
+    cfg = train_cfg("episodic", 4)
+    runner = MetaFCOSRunner()
+    model = runner.build_model(cfg, init="train")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts are read around this block alone
+    nms_kernel.LAUNCHES = 0
+    _, state = runner.do_train(cfg, model)
+    launches = nms_kernel.LAUNCHES
+    # ---- end of the main path
+    for i, m in enumerate(runner.train_metrics):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"step {i}: non-finite loss {m}")
+    trainable = set(state.tx.names)
+    moved = {k for k, v in model.state_dict().items()
+             if not torch.equal(v, start[k])}
+    if not moved <= trainable:
+        raise AssertionError(f"frozen parameters changed: "
+                             f"{sorted(moved - trainable)[:5]}")
+    for prefix in ("code_generator.", "fcos_head.cls_tower."):
+        if not any(k.startswith(prefix) for k in moved):
+            raise AssertionError(f"{prefix} did not move")
+    if any(k.startswith(("backbone.", "fpn.", "fcos_head.bbox"))
+           for k in trainable):
+        raise AssertionError("backbone or bbox branch trainable")
+    e = cfg.SOLVER.IMS_PER_BATCH
+    imgs = e * (cfg.MODEL.META_LEARN.SHOT + cfg.MODEL.META_LEARN.QUERY_SHOT)
+    line = _train_line("episodic", cfg, runner, 3, imgs, card)
+    log(f"[train-episodic] {e} episodes, GRAD_ACCUM {cfg.TPU.GRAD_ACCUM}: "
+        f"median step {line['median_step_ms']:.1f} ms, "
+        f"{line['images_per_s']:.1f} img/s, peak "
+        f"{line['peak_memory_gb']:.2f} GB; {len(moved)} tensors moved, "
+        f"{len(start) - len(moved)} unchanged")
+    check_resume(cfg, runner, state, work)
+    return launches, line
+
+
+def check_resume(cfg, runner, state, work: str) -> None:
+    """Checkpoint, restore into a fresh model, one step: equal to the same
+    step taken by the uninterrupted state."""
+    cfg = cfg.clone()
+    cfg.OUTPUT_DIR = os.path.join(work, "resume")
+    CheckpointManager(os.path.join(cfg.OUTPUT_DIR, "ckpt")).save(
+        state.step, state)
+    loader = runner._episodic_loader(cfg)
+    batch = next(loader)
+    loader.close()
+    runner.make_train_step(cfg, state.model)(state, batch)
+    fresh = runner.build_model(cfg, init="train")
+    resumed, _, _ = runner._common_train_setup(cfg, fresh)
+    if resumed.step != state.step - 1:
+        raise AssertionError(f"restored step {resumed.step}")
+    runner.make_train_step(cfg, fresh)(resumed, batch)
+    worst = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(state.model.state_dict().values(),
+                                fresh.state_dict().values()))
+    worst_m = max(float((a - b).abs().max())
+                  for a, b in zip(state.tx.trace, resumed.tx.trace))
+    if worst > 1e-5 or worst_m > 1e-5:
+        raise AssertionError(f"resumed step differs: params {worst}, "
+                             f"momentum {worst_m}")
+    log(f"[train-episodic] save, restore, one step = one uninterrupted step "
+        f"(params within {worst:.2e}, momentum within {worst_m:.2e})")
+
+
+def phase_train_pretrain(card: str, batch: int = 128):
+    cfg = train_cfg("pretrain", 3, batch=batch)
+    runner = MetaFCOSRunner()
+    model = runner.build_model(cfg, init="train")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts are read around this block alone
+    nms_kernel.LAUNCHES = 0
+    runner.do_train(cfg, model)
+    launches = nms_kernel.LAUNCHES
+    # ---- end of the main path
+    for i, m in enumerate(runner.train_metrics):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"step {i}: non-finite loss {m}")
+    moved = {k for k, v in model.state_dict().items()
+             if not torch.equal(v, start[k])}
+    if not any(k.startswith("backbone.") for k in moved):
+        raise AssertionError("the backbone did not move")
+    line = _train_line("pretrain", cfg, runner, 2, cfg.SOLVER.IMS_PER_BATCH,
+                       card)
+    log(f"[train-pretrain] batch {cfg.SOLVER.IMS_PER_BATCH}, GRAD_ACCUM "
+        f"{cfg.TPU.GRAD_ACCUM}: median step {line['median_step_ms']:.1f} ms, "
+        f"{line['images_per_s']:.1f} img/s, peak "
+        f"{line['peak_memory_gb']:.2f} GB")
+    return launches, line
+
+
 def main() -> int:
     os.environ.pop("SYLPH_TEST_MODE", None)  # it would cut the query set
     if not torch.cuda.is_available():
@@ -641,10 +906,13 @@ def main() -> int:
     max_err = phase_nms_against_twin()
     serve_launches, timing = phase_serving()
     phase_card_vs_cpu()
-    # the meta-test's files live in a scratch directory of their own
+    # the meta-test's and training's files live in a scratch directory
     work = tempfile.mkdtemp(prefix="sylph_meta_test_")
     try:
         meta_launches, meta_timing = phase_meta_test(work)
+        phase_train_card_vs_cpu()
+        train_launches, episodic_line = phase_train_episodic(work, card)
+        pre_launches, pretrain_line = phase_train_pretrain(card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -652,12 +920,18 @@ def main() -> int:
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the NMS kernel: "
                              f"{by_path}")
+    if train_launches or pre_launches:
+        raise AssertionError("training launched the NMS kernel")
     kernels = [dict(name="nms", route="cuda",
                     source="sylph_tpu_torch/csrc/nms.cu",
                     replaces="sylph_tpu/ops/nms_pallas.py:96",
                     launches=sum(by_path.values()),
-                    launches_by_path=by_path, max_abs_err=max_err,
+                    launches_by_path=by_path,
+                    launches_on_train_paths=train_launches + pre_launches,
+                    max_abs_err=max_err,
                     library_ms=None, **timing, **meta_timing)]
+    print(json.dumps(episodic_line), flush=True)
+    print(json.dumps(pretrain_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

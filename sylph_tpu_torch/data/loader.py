@@ -1,15 +1,15 @@
-"""Meta-test batch assembly and prefetching (port of the eval loaders of
-sylph_tpu/data/loader.py).
+"""Batch assembly and prefetching (port of sylph_tpu/data/loader.py).
 
-Each loader yields dicts of fixed-shape numpy arrays; a thread pool
-decodes and maps records ahead of the consumer (PIL releases the GIL in
-its decode and resample paths, so threads scale). The episodic and
-pretrain train loaders, and their samplers, belong to the training slice.
+Each loader yields dicts of fixed-shape arrays; a thread pool decodes and
+maps records ahead of the consumer (PIL releases the GIL in its decode and
+resample paths, so threads scale).
 
-The query loader writes its images into a reused ring of batch buffers
-(``_BufferPool``): a consumer that keeps a batch past the ring's depth
-must copy it. ``evaluation/meta_eval.py`` copies every batch to the model's
-device (a real copy on the CPU too) before the slot can come round again.
+The train and query loaders write their images into a reused ring of batch
+buffers (``_BufferPool``): a consumer that keeps a batch past the ring's
+depth must copy it. ``evaluation/meta_eval.py`` copies every query batch to
+the model's device (a real copy on the CPU too) before the slot can come
+round again; the train loaders, given ``device=``, make that copy on their
+own worker thread, so the copy of batch i+1 overlaps the step on batch i.
 """
 
 from __future__ import annotations
@@ -17,12 +17,15 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Union
 
 import numpy as np
+import torch
 
 from .mapper import EpisodicMapper
 from .meta_dataset import MetaDataset
+from .samplers import (EpochShuffleSampler, RepeatFactorClassSampler,
+                       RepeatFactorImageSampler, TrainingClassSampler)
 
 _POOL = ThreadPoolExecutor(max_workers=8)
 
@@ -55,7 +58,9 @@ def _prefetch(gen_fn, depth: int = 2):
     An exception in the generator is forwarded to the consumer and raised
     there, never turned into an early end (a silently truncated query set
     would skew AP). Abandoning the iterator (``.close()``, garbage
-    collection, an exception in the consumer) cancels the worker.
+    collection, an exception in the consumer) cancels the worker and waits
+    for it to finish the item it is making: a worker left copying to the
+    card while the interpreter exits aborts the process.
     """
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = object()
@@ -92,6 +97,151 @@ def _prefetch(gen_fn, depth: int = 2):
             yield item
     finally:
         cancelled.set()
+        if t is not threading.current_thread():
+            t.join()
+
+
+# host-side keys: the device RandAugment reads its op ids and sizes on the
+# host, so choosing an op never waits on the card
+_HOST_KEYS = ("aug_ops", "aug_params", "image_sizes", "query_aug_ops",
+              "query_aug_params", "query_image_sizes")
+
+
+def batch_to_device(batch: Dict[str, np.ndarray],
+                    device: Optional[Union[str, torch.device]]) -> Dict:
+    """Copy a batch's arrays to ``device`` (a real copy on the CPU too: the
+    images sit in a ring buffer that is rewritten later); ``None`` keeps
+    numpy."""
+    if device is None:
+        return batch
+    return {k: v if k in _HOST_KEYS else
+            torch.from_numpy(np.ascontiguousarray(v)).to(device, copy=True)
+            for k, v in batch.items()}
+
+
+def build_episodic_train_loader(
+    dataset: MetaDataset, mapper: EpisodicMapper, *, episodes_per_batch: int,
+    seed: int = 0, sampler: str = "TrainingSampler",
+    repeat_thresh: float = 0.001, prefetch: int = 2, retain: int = 2,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Iterator[Dict]:
+    """Infinite episodic batches (reference
+    build_meta_detection_train_loader, data/build.py:424-492): E episodes,
+    each SHOT support and QUERY_SHOT query records of one class, in the
+    ``make_episodic_train_step`` layout.
+
+    ``retain``: the most batches the consumer holds at once; it sizes the
+    buffer ring. Per-record seeds keep the result independent of the order
+    in which the pool finishes."""
+    if sampler == "RepeatFactorTrainingSampler":
+        counts = {c: len(dataset.support[c]) for c in dataset.classes}
+        class_iter = iter(RepeatFactorClassSampler(
+            counts, repeat_thresh, seed))
+    else:
+        class_iter = iter(TrainingClassSampler(len(dataset.classes), seed))
+    rng = np.random.RandomState(seed + 1)
+
+    def gen():
+        sup_pool = qry_pool = None
+        while True:
+            sup_recs, qry_recs, class_ids = [], [], []
+            for _ in range(episodes_per_batch):
+                ci = next(class_iter)
+                item = dataset._train_item(ci)
+                class_ids.append(item["support_set_target"])
+                sup_recs.extend(item["support_set"])
+                qry_recs.extend(item["query_set"])
+            if sup_pool is None:
+                sup_pool = _BufferPool(
+                    (len(sup_recs), *mapper.support_canvas, 3),
+                    depth=retain + prefetch + 4)
+                qry_pool = _BufferPool(
+                    (len(qry_recs), *mapper.train_canvas, 3),
+                    depth=retain + prefetch + 4)
+            sup_buf, qry_buf = sup_pool.next(), qry_pool.next()
+            seeds = rng.randint(0, 2 ** 31, len(sup_recs) + len(qry_recs))
+            sup_f = [_POOL.submit(
+                mapper.map_support, r, np.random.RandomState(s), True,
+                sup_buf[i])
+                for i, (r, s) in enumerate(
+                    zip(sup_recs, seeds[:len(sup_recs)]))]
+            qry_f = [_POOL.submit(
+                mapper.map_query_train, r, np.random.RandomState(s),
+                qry_buf[i])
+                for i, (r, s) in enumerate(
+                    zip(qry_recs, seeds[len(sup_recs):]))]
+            sup = [f.result() for f in sup_f]
+            qmaps = [f.result() for f in qry_f]
+            batch = {
+                "support_images": sup_buf,
+                "support_boxes": np.stack([m["box"] for m in sup]),
+                "support_box_valid": np.asarray(
+                    [m["box_valid"] for m in sup], bool),
+                "query_images": qry_buf,
+                "query_gt_boxes": np.stack([m["gt_boxes"] for m in qmaps]),
+                "query_gt_labels": np.stack(
+                    [m["gt_labels"] for m in qmaps]).astype(np.int32),
+                "query_gt_valid": np.stack([m["gt_valid"] for m in qmaps]),
+                "episode_class_ids": np.asarray(class_ids, np.int32),
+            }
+            if "aug_ops" in qmaps[0]:
+                batch["query_aug_ops"] = np.stack(
+                    [m["aug_ops"] for m in qmaps])
+                batch["query_aug_params"] = np.stack(
+                    [m["aug_params"] for m in qmaps])
+                batch["query_image_sizes"] = np.stack(
+                    [m["image_size"] for m in qmaps])
+            yield batch_to_device(batch, device)
+
+    return _prefetch(gen, prefetch)
+
+
+def build_pretrain_loader(
+    records, mapper: EpisodicMapper, *, batch_size: int, seed: int = 0,
+    sampler: str = "TrainingSampler", repeat_thresh: float = 0.001,
+    prefetch: int = 2, retain: int = 2,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Iterator[Dict]:
+    """Plain detection batches for pretraining: epoch-shuffled, or
+    image-level repeat-factor sampled (DATALOADER.SAMPLER_TRAIN ==
+    RepeatFactorTrainingSampler). Records without annotations are dropped
+    (detectron2's train-time filter)."""
+    records = [r for r in records if r.get("annotations")]
+    if sampler == "RepeatFactorTrainingSampler":
+        idx_iter = iter(RepeatFactorImageSampler(
+            records, repeat_thresh, seed))
+    else:
+        idx_iter = iter(EpochShuffleSampler(len(records), seed))
+    rng = np.random.RandomState(seed + 1)
+
+    def gen():
+        pool = _BufferPool((batch_size, *mapper.train_canvas, 3),
+                           depth=retain + prefetch + 4)
+        while True:
+            buf = pool.next()
+            idx = [next(idx_iter) for _ in range(batch_size)]
+            seeds = rng.randint(0, 2 ** 31, len(idx))
+            futs = [_POOL.submit(
+                mapper.map_query_train, records[i],
+                np.random.RandomState(s), buf[j])
+                for j, (i, s) in enumerate(zip(idx, seeds))]
+            mapped = [f.result() for f in futs]
+            batch = {
+                "images": buf,
+                "gt_boxes": np.stack([m["gt_boxes"] for m in mapped]),
+                "gt_labels": np.stack(
+                    [m["gt_labels"] for m in mapped]).astype(np.int32),
+                "gt_valid": np.stack([m["gt_valid"] for m in mapped]),
+            }
+            if "aug_ops" in mapped[0]:
+                batch["aug_ops"] = np.stack([m["aug_ops"] for m in mapped])
+                batch["aug_params"] = np.stack(
+                    [m["aug_params"] for m in mapped])
+                batch["image_sizes"] = np.stack(
+                    [m["image_size"] for m in mapped])
+            yield batch_to_device(batch, device)
+
+    return _prefetch(gen, prefetch)
 
 
 def build_support_set_loader(

@@ -1,14 +1,14 @@
-"""Record -> fixed-shape arrays for the meta-test (port of the eval roles of
-sylph_tpu/data/mapper.py).
+"""Record -> fixed-shape arrays (port of sylph_tpu/data/mapper.py).
 
 Each record becomes a fixed-canvas uint8 BGR image (normalized on the
 device by ``MetaOneStageDetector._normalize``) plus padded GT arrays. The
 support role picks one box per record at map time (``select_a_mask``,
 reference code_generator/utils.py:27-47), so the device work is
-deterministic.
-
-``map_query_train`` (scale jitter, flips, RandAugment) belongs to the
-training slice and raises.
+deterministic. The train-query role applies scale jitter and crop (or a
+short-edge resize), a horizontal flip and color RandAugment: on the host,
+or, with ``rand_augment="device"``, only drawn here and applied by the train
+step on the card (BGR canvases only; any other format falls back to the
+host).
 """
 
 from __future__ import annotations
@@ -71,26 +71,72 @@ def _xywh_to_xyxy(anns) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class EpisodicMapper:
-    """Maps records for the meta-test's query and support roles; canvas
-    sizes are static per role (``TPU.EVAL_CANVAS``,
-    ``TPU.SUPPORT_CANVAS``)."""
+    """Maps records for the train query, eval query and support roles;
+    canvas sizes are static per role (``TPU.TRAIN_CANVAS``,
+    ``TPU.EVAL_CANVAS``, ``TPU.SUPPORT_CANVAS``)."""
 
-    def __init__(self, *, eval_canvas=(1024, 1344),
-                 support_canvas=(512, 512), max_gt_boxes: int = 100,
-                 min_size_test: int = 800, max_size_test: int = 1333,
+    def __init__(self, *, train_canvas=(1024, 1024),
+                 eval_canvas=(1024, 1344), support_canvas=(512, 512),
+                 max_gt_boxes: int = 100,
+                 min_size_train=(640, 672, 704, 736, 768, 800),
+                 max_size_train: int = 1333, min_size_test: int = 800,
+                 max_size_test: int = 1333, use_scale_jitter: bool = True,
+                 scale_range=(0.5, 2.0), rand_augment=True,
                  fmt: str = "BGR"):
+        self.train_canvas = tuple(train_canvas)
         self.eval_canvas = tuple(eval_canvas)
         self.support_canvas = tuple(support_canvas)
         self.max_gt = max_gt_boxes
+        self.min_size_train = tuple(min_size_train)
+        self.max_size_train = max_size_train
         self.min_size_test = min_size_test
         self.max_size_test = max_size_test
+        self.use_scale_jitter = use_scale_jitter
+        self.scale_range = scale_range
+        if rand_augment == "device" and fmt != "BGR":
+            # the device ops assume BGR canvases
+            rand_augment = True
+        self.rand_augment = rand_augment
         self.fmt = fmt
 
     # ------------------------------------------------------------------ roles
     def map_query_train(self, record: Dict, rng: np.random.RandomState,
                         out: Optional[np.ndarray] = None):
-        raise NotImplementedError("training-time mapping (scale jitter, "
-                                  "flips, RandAugment) is not ported yet")
+        if self.use_scale_jitter:
+            img, pre = _load_image(record)
+        else:
+            # the largest short-edge draw bounds the draft target, so the
+            # DCT-scaled decode is never below any possible resize
+            img, pre = _load_image(record, max(self.min_size_train),
+                                   self.max_size_train)
+        boxes, labels = _xywh_to_xyxy(record.get("annotations", []))
+        boxes *= pre
+        if self.use_scale_jitter:
+            scale = rng.uniform(*self.scale_range)
+            img, boxes, labels = T.resize_scale_crop(
+                img, boxes, labels, scale, self.train_canvas, rng)
+        else:
+            short = self.min_size_train[rng.randint(len(self.min_size_train))]
+            img, boxes = T.resize_shortest_edge(img, boxes, short,
+                                                self.max_size_train)
+        # the flip is drawn before the color ops (the rng stream) and
+        # applied after: every color op commutes with a horizontal flip
+        do_flip = rng.rand() < 0.5
+        aug = None
+        if self.rand_augment == "device":
+            aug = T.draw_rand_augment(rng)   # the train step applies it
+        elif self.rand_augment:
+            img = T.rand_augment_color(img, rng)
+        if do_flip:
+            img = img[:, ::-1]
+            if boxes.size:
+                w = img.shape[1]
+                boxes = np.stack([w - boxes[:, 2], boxes[:, 1],
+                                  w - boxes[:, 0], boxes[:, 3]], -1)
+        res = self._finalize(img, boxes, labels, self.train_canvas, out)
+        if aug is not None:
+            res["aug_ops"], res["aug_params"] = aug
+        return res
 
     def map_query_eval(self, record: Dict,
                        out: Optional[np.ndarray] = None):

@@ -14,7 +14,9 @@ sylph_tpu/models/code_generator.py).
 
 Module names follow the flax ones (``tower_conv0``, ``tower_conv0_gn``,
 ``cls_conv_head``, ``post_norm``, ...) so converted weights load by name.
-The snnl contrastive loss belongs to training and is not ported yet.
+With ``contrastive_loss="snnl"`` the training codes also carry the soft-
+nearest-neighbor loss over the per-shot features
+(``soft_nearest_neighbor_loss``).
 """
 
 from __future__ import annotations
@@ -139,9 +141,6 @@ class CodeGeneratorHead(nn.Module):
                 box_valid: torch.Tensor, num_shots: int,
                 training: bool = False) -> Dict[str, torch.Tensor]:
         """features: per-level (S, C, H_l, W_l); boxes (S, 4), one per image."""
-        if training and self.contrastive_loss == "snnl":
-            raise NotImplementedError("the snnl loss is training-only and "
-                                      "not ported yet")
         s = boxes.shape[0]
         assert s % num_shots == 0, (s, num_shots)
         feats = [f.to(self.compute_dtype) for f in features]
@@ -181,6 +180,9 @@ class CodeGeneratorHead(nn.Module):
                 weight).reshape(n_class)
 
         out: Dict[str, torch.Tensor] = {}
+        if training and self.contrastive_loss == "snnl":
+            # registration reads only the codes, so the loss is left out
+            out["snnl"] = soft_nearest_neighbor_loss(conv_feature, num_shots)
         if training:
             conv_weights, conv_bias = self._process_code(
                 conv_weights, conv_bias, conv_weight_norm)
@@ -227,3 +229,25 @@ class CodeGeneratorHead(nn.Module):
                                   class_codes["cls_bias"],
                                   class_codes.get("cls_weight_norm"))
         return {"cls_conv": w, "cls_bias": b}
+
+
+def soft_nearest_neighbor_loss(features: torch.Tensor, k: int
+                               ) -> torch.Tensor:
+    """Soft-nearest-neighbor contrastive loss over per-shot features
+    (reference SoftNearestNeighborLoss, code_generator/utils.py:326-351):
+    L2-normalized features, exp(-squared distance), the same k-group as the
+    numerator against every other item as the denominator."""
+    n = features.shape[0]
+    f = features / torch.clamp(torch.linalg.vector_norm(
+        features, dim=-1, keepdim=True), min=1e-12)
+    sq = ((f[:, None, :] - f[None, :, :]) ** 2).sum(-1)
+    sim = torch.exp(-sq)
+    idx = torch.arange(n, device=features.device)
+    same_class = (idx[:, None] // k) == (idx[None, :] // k)
+    off_diag = idx[:, None] != idx[None, :]
+    zero = torch.zeros_like(sim)
+    intra = torch.where(same_class & off_diag, sim, zero).sum(1)
+    allc = torch.where(off_diag, sim, zero).sum(1)
+    per_item = torch.log(torch.clamp(intra, min=1e-12)
+                         / torch.clamp(allc, min=1e-12))
+    return -per_item.sum() / n

@@ -1,7 +1,11 @@
-"""MetaOneStageDetector: the top-level few-shot detector (port of the
-serving modes of sylph_tpu/models/meta_arch.py).
+"""MetaOneStageDetector: the top-level few-shot detector (port of
+sylph_tpu/models/meta_arch.py).
 
-  * ``forward_base``        — base detector with the trained ``cls_logits``;
+  * ``forward_base``        — base detector with the trained ``cls_logits``
+                              (pretraining and plain evaluation);
+  * ``forward_episodic_train`` — support set -> normalized codes ->
+                              conditioned query head, one training episode
+                              batch;
   * ``forward_class_code``  — support set -> raw class codes;
   * ``normalize_code``      — post-hoc code normalization;
   * ``forward_instances``   — conditioned inference with a code bank.
@@ -9,15 +13,22 @@ serving modes of sylph_tpu/models/meta_arch.py).
 Input contract as in the JAX package: images are float32 (or uint8)
 **NHWC BGR** canvases, already resized and padded; normalization
 ``(x - mean) / std`` happens here, then the model runs NCHW.
-``forward_episodic_train`` belongs to the training slice.
+
+Episode semantics: the E episodes of a call are the "way": codes are made
+for their E classes and every query is classified against all E of them.
+With ``stop_backbone_grad`` (MODEL.BACKBONE.FREEZE) the backbone and FPN run
+without an autograd graph, so their activations are not kept;
+``remat_backbone`` recomputes the backbone's activations in the backward
+pass (``torch.utils.checkpoint``, non-reentrant).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from .code_generator import CodeGeneratorHead
 from .fcos_head import FCOSHead, HeadOutputs
@@ -44,9 +55,12 @@ class MetaOneStageDetector(nn.Module):
                  pixel_mean: Sequence[float] = (103.530, 116.280, 123.675),
                  pixel_std: Sequence[float] = (1.0, 1.0, 1.0),
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 s2d_stem: bool = False):
+                 s2d_stem: bool = False, remat_backbone: bool = False,
+                 stop_backbone_grad: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat_backbone = remat_backbone
+        self.stop_backbone_grad = stop_backbone_grad
         self.code_generator_name = code_generator_name
         self.backbone = ResNet(depth=depth,
                                out_features=tuple(backbone_out_features),
@@ -80,18 +94,32 @@ class MetaOneStageDetector(nn.Module):
             raise NotImplementedError(code_generator_name)
         self.pixel_mean = tuple(float(m) for m in pixel_mean)
         self.pixel_std = tuple(float(s) for s in pixel_std)
+        self._mean_std: Dict[torch.device, tuple] = {}
 
     # -------------------------------------------------------------- plumbing
     def _normalize(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) BGR canvas -> normalized (B, 3, H, W) compute dtype."""
-        mean = torch.tensor(self.pixel_mean, device=images.device)
-        std = torch.tensor(self.pixel_std, device=images.device)
+        """(B, H, W, 3) BGR canvas -> normalized (B, 3, H, W) compute dtype.
+        The mean and std are made once per device: a host-to-device copy
+        from pageable memory waits for the card's queued work."""
+        dev = images.device
+        if dev not in self._mean_std:
+            self._mean_std[dev] = (torch.tensor(self.pixel_mean, device=dev),
+                                   torch.tensor(self.pixel_std, device=dev))
+        mean, std = self._mean_std[dev]
         x = (images.float() - mean) / std
         return x.to(self.compute_dtype).permute(0, 3, 1, 2)
 
     def extract_features(self, images: torch.Tensor) -> List[torch.Tensor]:
         """images (B, H, W, 3) BGR canvas -> list of 5 FPN maps (NCHW)."""
-        return self.fpn(self.backbone(self._normalize(images)))
+        if self.stop_backbone_grad:
+            with torch.no_grad():
+                return self.fpn(self.backbone(self._normalize(images)))
+        x = self._normalize(images)
+        if self.remat_backbone and torch.is_grad_enabled():
+            feats = checkpoint(self.backbone, x, use_reentrant=False)
+        else:
+            feats = self.backbone(x)
+        return self.fpn(feats)
 
     # ----------------------------------------------------------------- modes
     def forward_base(self, images: torch.Tensor) -> HeadOutputs:
@@ -109,6 +137,19 @@ class MetaOneStageDetector(nn.Module):
     def normalize_code(self, codes: Dict[str, torch.Tensor]
                        ) -> Dict[str, torch.Tensor]:
         return self.code_generator.normalize(codes)
+
+    def forward_episodic_train(
+        self, support_images: torch.Tensor, support_boxes: torch.Tensor,
+        support_box_valid: torch.Tensor, query_images: torch.Tensor,
+        num_shots: int) -> Tuple[HeadOutputs, Dict[str, torch.Tensor]]:
+        """support_images (E*num_shots, H, W, 3), query_images (E*Q, H', W',
+        3) -> the conditioned query head outputs (E logit channels) and the
+        normalized codes (for the distillation and snnl losses)."""
+        sfeats = self.extract_features(support_images)
+        codes = self.code_generator(sfeats, support_boxes, support_box_valid,
+                                    num_shots=num_shots, training=True)
+        qfeats = self.extract_features(query_images)
+        return self.fcos_head(qfeats, class_code=codes), codes
 
     def forward_instances(self, images: torch.Tensor,
                           class_code: Dict[str, torch.Tensor]) -> HeadOutputs:

@@ -1,21 +1,27 @@
-"""Model construction and the meta-test runner (port of
-sylph_tpu/runner/meta_fcos_runner.py without its training half):
-``build_model_from_cfg``, ``_codegen_kwargs``, ``_decode_cfg``, ``_mapper``,
-``MetaFCOSRunner`` (``get_default_cfg``, ``build_model``, ``get_evaluator``,
+"""Model construction and the runner (port of
+sylph_tpu/runner/meta_fcos_runner.py): ``build_model_from_cfg``,
+``_codegen_kwargs``, ``_decode_cfg``, ``_freeze_cfg``, ``_loss_cfg``,
+``_mapper``, ``MetaFCOSRunner`` (``get_default_cfg``, ``build_model`` with
+MODEL.WEIGHTS loading, ``do_train`` in both modes, ``get_evaluator``,
 ``do_test``) and ``create_runner``.
 
-The repo ships no checkpoint, so ``build_model_from_cfg`` initializes the
-weights from an explicit ``torch.Generator`` seed, detectron2-style
-(fan-in scaled convs, random frozen-BN statistics) so that activations stay
-O(1) through the full-depth network. Pretrained weights come in through
-``load_state_dict`` (the port's own) or ``utils.convert_weights``
-(the JAX package's).
+The repo ships no checkpoint, so weights start from an explicit
+``torch.Generator`` seed in one of two ways:
+  * ``init_random_weights`` (serving and meta-test checks): detectron2-style
+    fan-in scaled convs and random frozen-BN statistics, so activations stay
+    O(1) through the full-depth network and random codes give detections;
+  * ``init_train_weights`` (a training run from scratch): the flax
+    initializers' distributions (lecun-normal backbone and FPN, normal(0.01)
+    heads, the focal prior on ``cls_logits``, unit norms and scales).
+MODEL.WEIGHTS overlays a flat ``.npz`` of flax params (the JAX package's
+layout) or one of the port's own checkpoints.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import time
 from typing import Dict, Union
 
 import numpy as np
@@ -24,8 +30,10 @@ import torch.nn as nn
 
 from .config import CfgNode, get_default_cfg
 from .data.catalog import DatasetCatalog
-from .data.loader import _POOL
+from .data.loader import (_POOL, build_episodic_train_loader,
+                          build_pretrain_loader)
 from .data.mapper import EpisodicMapper
+from .data.meta_dataset import MetaDataset
 from .evaluation.evaluators import (AREvaluator, COCOMetaEvaluator,
                                     COCOOWDEvaluator, FewshotLVISEvaluator)
 from .evaluation.postprocess import detections_to_coco_results
@@ -33,7 +41,15 @@ from .models.layers import Conv2d, GroupNorm, Scale
 from .models.meta_arch import MetaOneStageDetector
 from .models.resnet import FrozenBatchNorm
 from .ops.decode import DecodeCfg, decode_proposals
+from .ops.fcos_losses import FCOSLossCfg
 from .ops.locations import build_location_grid
+from .train.checkpoint import (CheckpointManager, filter_params_by_module,
+                               load_params_any, merge_state_dict)
+from .train.optimizer import build_freeze_mask, build_optimizer
+from .train.steps import make_episodic_train_step, make_pretrain_train_step
+from .train.train_state import TrainState
+from .utils.convert_weights import state_dict_from_jax
+from .utils.events import AbnormalLossChecker, MetricsWriter
 from .utils.tb_writer import write_eval_results_tb
 
 BN_EPS = 1e-5
@@ -122,10 +138,64 @@ def init_random_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+# flax lecun_normal: a normal truncated at +-2 std, scaled so its std is
+# sqrt(1 / fan_in) (jax.nn.initializers.variance_scaling)
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_train_weights(model: nn.Module, seed: int,
+                       prior_prob: float = 0.01) -> nn.Module:
+    """Fill every parameter and buffer from the JAX package's initializers
+    (their distributions, not their draws), drawn on the CPU from a
+    ``torch.Generator`` and copied to the model's device:
+
+      * backbone and FPN convs: lecun normal (flax ``nn.Conv`` default),
+        biases 0; FrozenBN scale 1, bias 0;
+      * FCOS head and code-generator convs: normal(0.01), biases 0, with
+        ``cls_logits``'s bias at the focal prior -log((1 - p) / p)
+        (fcos_head.py:49-50, 126-137; code_generator.py:56);
+      * GroupNorm scale 1, bias 0; every ``Scale`` at its init value;
+        ``meta_bias_value`` at the prior (code_generator.py:217).
+    """
+    gen = torch.Generator().manual_seed(seed)
+    prior = -math.log((1 - prior_prob) / prior_prob)
+    for name, module in model.named_modules():
+        if isinstance(module, Conv2d):
+            shape = module.weight.shape
+            if name.startswith(("fcos_head.", "code_generator.")):
+                w = 0.01 * torch.randn(shape, generator=gen)
+            else:
+                std = math.sqrt(1.0 / module.weight[0].numel()) \
+                    / _TRUNC_NORMAL_STD
+                w = torch.nn.init.trunc_normal_(
+                    torch.empty(shape), 0.0, 1.0, -2.0, 2.0,
+                    generator=gen) * std
+            module.weight.copy_(w)
+            if module.bias is not None:
+                module.bias.fill_(prior if name == "fcos_head.cls_logits"
+                                  else 0.0)
+        elif isinstance(module, FrozenBatchNorm):
+            module.scale.fill_(1.0)
+            module.bias.fill_(0.0)
+        elif isinstance(module, GroupNorm):
+            module.weight.fill_(1.0)
+            module.bias.fill_(0.0)
+        elif isinstance(module, Scale):
+            module.scale.fill_(module.init_value)
+    cg = getattr(model, "code_generator", None)
+    if cg is not None and cg.meta_bias:
+        cg.meta_bias_value.fill_(cg.prior)
+    return model
+
+
 def build_model_from_cfg(cfg, device: Union[str, torch.device] = "cuda",
-                         seed: int = None) -> MetaOneStageDetector:
-    """MetaOneStageDetector for ``cfg`` on ``device``, randomly initialized
-    from ``seed`` (default ``max(cfg.SEED, 0)``), in eval mode.
+                         seed: int = None, init: str = "random"
+                         ) -> MetaOneStageDetector:
+    """MetaOneStageDetector for ``cfg`` on ``device``, initialized from
+    ``seed`` (default ``max(cfg.SEED, 0)``) by ``init_random_weights``
+    (``init="random"``) or ``init_train_weights`` (``init="train"``), in
+    eval mode (the port has no train-mode layers: FrozenBN, GroupNorm).
 
     Parameters are float32; activations run in ``TPU.COMPUTE_DTYPE``, with
     GroupNorm and logits in float32.
@@ -155,21 +225,73 @@ def build_model_from_cfg(cfg, device: Union[str, torch.device] = "cuda",
             pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
             pixel_std=tuple(cfg.MODEL.PIXEL_STD),
             s2d_stem=cfg.TPU.S2D_STEM,
+            remat_backbone=cfg.TPU.REMAT_BACKBONE,
+            stop_backbone_grad=cfg.MODEL.BACKBONE.FREEZE,
             compute_dtype=(torch.bfloat16
                            if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
                            else torch.float32))
     model = model.to_empty(device=dev)
-    init_random_weights(model, max(cfg.SEED, 0) if seed is None else seed)
+    seed = max(cfg.SEED, 0) if seed is None else seed
+    if init == "train":
+        init_train_weights(model, seed, cfg.MODEL.FCOS.PRIOR_PROB)
+    elif init == "random":
+        init_random_weights(model, seed)
+    else:
+        raise ValueError(f"init {init!r}: 'random' or 'train'")
     return model.eval()
+
+
+def _freeze_cfg(cfg) -> Dict:
+    pg = cfg.MODEL.PROPOSAL_GENERATOR
+    return {
+        "backbone": cfg.MODEL.BACKBONE.FREEZE,
+        "backbone_exclude": list(cfg.MODEL.BACKBONE.FREEZE_EXCLUDE),
+        "proposal_generator": pg.FREEZE,
+        "cls_tower": pg.FREEZE_CLS_TOWER,
+        "cls_logits": pg.FREEZE_CLS_LOGITS,
+        "bbox_branch": pg.FREEZE_BBOX_BRANCH,
+        "bbox_tower": pg.FREEZE_BBOX_TOWER,
+        "owd": pg.OWD,
+        "code_generator": cfg.MODEL.META_LEARN.CODE_GENERATOR.FREEZE,
+        "episodic": cfg.MODEL.META_LEARN.EPISODIC_LEARNING,
+        "roi_heads": ("ROI_HEADS" in cfg.MODEL
+                      and cfg.MODEL.ROI_HEADS.get("FREEZE", False)),
+        "roi_heads_feat": ("ROI_HEADS" in cfg.MODEL
+                           and cfg.MODEL.ROI_HEADS.get("FREEZE_FEAT",
+                                                       False)),
+    }
+
+
+def _loss_cfg(cfg) -> FCOSLossCfg:
+    pg = cfg.MODEL.PROPOSAL_GENERATOR
+    return FCOSLossCfg(
+        focal_alpha=cfg.MODEL.FCOS.LOSS_ALPHA,
+        focal_gamma=cfg.MODEL.FCOS.LOSS_GAMMA,
+        loc_loss_type=cfg.MODEL.FCOS.LOC_LOSS_TYPE,
+        box_quality=tuple(sorted(cfg.MODEL.FCOS.BOX_QUALITY)),
+        iou_mask=cfg.MODEL.FCOS.IOU_MASK,
+        owd=pg.OWD,
+        freeze_cls_logits=pg.FREEZE_CLS_LOGITS,
+        box_branch_loss_on=not (pg.FREEZE_BBOX_BRANCH or pg.FREEZE),
+        distill_weight=cfg.MODEL.META_LEARN.CODE_GENERATOR
+        .DISTILLATION_LOSS_WEIGHT)
 
 
 def _mapper(cfg) -> EpisodicMapper:
     return EpisodicMapper(
+        train_canvas=tuple(cfg.TPU.TRAIN_CANVAS),
         eval_canvas=tuple(cfg.TPU.EVAL_CANVAS),
         support_canvas=tuple(cfg.TPU.SUPPORT_CANVAS),
         max_gt_boxes=cfg.TPU.MAX_GT_BOXES,
+        min_size_train=tuple(cfg.INPUT.MIN_SIZE_TRAIN),
+        max_size_train=cfg.INPUT.MAX_SIZE_TRAIN,
         min_size_test=cfg.INPUT.MIN_SIZE_TEST,
-        max_size_test=cfg.INPUT.MAX_SIZE_TEST, fmt=cfg.INPUT.FORMAT)
+        max_size_test=cfg.INPUT.MAX_SIZE_TEST,
+        use_scale_jitter=cfg.INPUT.USE_SCALE_JITTER,
+        rand_augment=("device" if cfg.INPUT.RAND_AUGMENT
+                      and cfg.TPU.get("DEVICE_RANDAUG", False)
+                      else cfg.INPUT.RAND_AUGMENT),
+        fmt=cfg.INPUT.FORMAT)
 
 
 def _eval_grid(cfg):
@@ -179,25 +301,209 @@ def _eval_grid(cfg):
 
 
 class MetaFCOSRunner:
-    """The meta-test half of the JAX ``MetaFCOSRunner``: config, model,
+    """Config, model, ``do_train`` (pretraining or episodic meta-training),
     evaluator dispatch and ``do_test`` on ``device`` (default ``"cuda"``,
-    which raises without a card). Training belongs to a later slice."""
+    which raises without a card)."""
 
     def __init__(self, device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.drivers: Dict[str, object] = {}
+        # per iteration of the last do_train: (data wait s, step wait s)
+        self.loop_times: list = []
 
     @classmethod
     def get_default_cfg(cls) -> CfgNode:
         return get_default_cfg()
 
-    def build_model(self, cfg) -> MetaOneStageDetector:
-        """``build_model_from_cfg`` on the runner's device (random weights
-        from ``cfg.SEED``; ``MODEL.WEIGHTS`` loading is not ported yet)."""
-        if cfg.MODEL.WEIGHTS:
-            raise NotImplementedError("loading MODEL.WEIGHTS is not ported "
-                                      "yet; load a state_dict instead")
-        return build_model_from_cfg(cfg, device=self.device)
+    def build_model(self, cfg, init: str = "random") -> MetaOneStageDetector:
+        """``build_model_from_cfg`` on the runner's device from ``cfg.SEED``
+        (``init="train"``: the flax initializers' distributions), then
+        MODEL.WEIGHTS over it."""
+        model = build_model_from_cfg(cfg, device=self.device, init=init)
+        return self._load_weights(cfg, model)
+
+    @staticmethod
+    def _load_weights(cfg, model: MetaOneStageDetector):
+        """MODEL.WEIGHTS with WEIGHTS_FILTER_BY_MODULE (reference
+        _weight_preprocess, meta_fcos_runner.py:232-288): a flat ``.npz`` of
+        flax params or a port checkpoint; leaves whose shapes differ are
+        skipped, a mostly mismatched file is refused."""
+        path = cfg.MODEL.WEIGHTS
+        if not path:
+            return model
+        if path.endswith((".pth", ".pkl")):
+            raise NotImplementedError(
+                "converting detectron2 .pth/.pkl checkpoints is not ported "
+                "yet; convert with the JAX package and save its params as a "
+                "flat .npz (tools/convert_checkpoint.py)")
+        loaded = filter_params_by_module(
+            load_params_any(path), list(cfg.MODEL.WEIGHTS_FILTER_BY_MODULE))
+        if path.endswith(".npz"):
+            loaded = state_dict_from_jax(loaded)
+        return merge_state_dict(model, loaded)
+
+    # ------------------------------------------------------------ training
+    def do_train(self, cfg, model: MetaOneStageDetector = None):
+        """Train ``model`` (built from scratch when None) for
+        SOLVER.MAX_ITER iterations, resuming from
+        ``{OUTPUT_DIR}/ckpt``; returns ``(model, state)``."""
+        if model is None:
+            model = self.build_model(cfg, init="train")
+        if cfg.MODEL.META_LEARN.EPISODIC_LEARNING:
+            return model, self._train_episodic(cfg, model)
+        return model, self._train_pretrain(cfg, model)
+
+    def _common_train_setup(self, cfg, model):
+        sc = cfg.SOLVER
+        tx, schedule = build_optimizer(
+            model, base_lr=sc.BASE_LR, momentum=sc.MOMENTUM,
+            weight_decay=sc.WEIGHT_DECAY,
+            weight_decay_norm=sc.WEIGHT_DECAY_NORM, steps=tuple(sc.STEPS),
+            gamma=sc.GAMMA, warmup_iters=sc.WARMUP_ITERS,
+            warmup_factor=sc.WARMUP_FACTOR,
+            clip_grad_norm=(sc.CLIP_GRADIENTS.CLIP_VALUE
+                            if sc.CLIP_GRADIENTS.ENABLED else 0.0),
+            freeze_cfg=_freeze_cfg(cfg))
+        state = TrainState(model, tx, use_ema=cfg.MODEL_EMA.ENABLED,
+                           ema_decay=cfg.MODEL_EMA.DECAY)
+        ckpt = (CheckpointManager(os.path.join(cfg.OUTPUT_DIR, "ckpt"))
+                if cfg.OUTPUT_DIR else None)
+        if ckpt is not None:
+            state, _ = ckpt.restore(state)
+        n_train = sum(int(m) for m in build_freeze_mask(
+            model, _freeze_cfg(cfg)).values())
+        print(f"[model] {sum(1 for _ in model.parameters())} parameter "
+              f"tensors, {n_train} trainable")
+        return state, schedule, ckpt
+
+    def _train_loop(self, cfg, state, step_fn, batches, schedule, ckpt,
+                    eval_fn=None):
+        """Host loop: one step per batch, metrics, the abnormal-loss check,
+        checkpoints every SOLVER.CHECKPOINT_PERIOD and at the end, and the
+        TEST.EVAL_PERIOD hook. ``self.loop_times`` keeps each iteration's
+        data wait and step wait (printed with SYLPH_TIME_LOOP=1)."""
+        max_iter = cfg.SOLVER.MAX_ITER
+        eval_period = cfg.TEST.EVAL_PERIOD
+        writer = MetricsWriter(cfg.OUTPUT_DIR)
+        checker = AbnormalLossChecker()
+        time_loop = bool(os.environ.get("SYLPH_TIME_LOOP"))
+        self.loop_times = []
+        self.train_metrics = []
+        it = state.step
+        try:
+            while it < max_iter:
+                t_loop = time.perf_counter()
+                batch = next(batches)
+                t_data = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                m = {k: float(v) for k, v in metrics.items()}
+                t_step = time.perf_counter()
+                self.loop_times.append((t_data - t_loop, t_step - t_data))
+                self.train_metrics.append(m)
+                if time_loop:
+                    print(f"[loop-timing] data_wait {t_data - t_loop:.2f}s  "
+                          f"step_wait {t_step - t_data:.2f}s")
+                it += 1
+                for key, msg in checker.check(m).items():
+                    print(f"[abnormal-loss] {key}: {msg}")
+                writer.write(it, m, lr=schedule(it))
+                if ckpt is not None and (
+                        it % cfg.SOLVER.CHECKPOINT_PERIOD == 0
+                        or it >= max_iter):
+                    ckpt.save(it, state)
+                if (eval_fn is not None and eval_period > 0
+                        and it % eval_period == 0 and it < max_iter):
+                    eval_fn(state, it)
+        finally:
+            writer.close()
+            batches.close()
+        return state
+
+    def make_train_step(self, cfg, model):
+        """The train step of the config's mode (episodic or pretraining) for
+        ``model``: ``step(state, batch) -> (state, losses)``."""
+        grid = build_location_grid(
+            tuple(cfg.TPU.TRAIN_CANVAS), tuple(cfg.MODEL.FCOS.FPN_STRIDES),
+            list(cfg.MODEL.FCOS.SIZES_OF_INTEREST))
+        lc = _loss_cfg(cfg)
+        kw = dict(center_sample=cfg.MODEL.FCOS.CENTER_SAMPLE,
+                  radius=cfg.MODEL.FCOS.POS_RADIUS,
+                  steps_per_call=cfg.TPU.STEPS_PER_CALL,
+                  grad_accum=max(1, cfg.TPU.GRAD_ACCUM))
+        if not cfg.MODEL.META_LEARN.EPISODIC_LEARNING:
+            return make_pretrain_train_step(model, grid, lc, **kw)
+        return make_episodic_train_step(
+            model, grid, lc, num_shots=cfg.MODEL.META_LEARN.SHOT,
+            pretrained_kernel=(self._cls_logits_kernel(model)
+                               if lc.distill_weight > 0 else None), **kw)
+
+    def _train_pretrain(self, cfg, model):
+        state, schedule, ckpt = self._common_train_setup(cfg, model)
+        return self._train_loop(cfg, state, self.make_train_step(cfg, model),
+                                self._pretrain_loader(cfg), schedule, ckpt)
+
+    def _train_episodic(self, cfg, model):
+        state, schedule, ckpt = self._common_train_setup(cfg, model)
+
+        def eval_fn(state, it):
+            print(f"[eval @ iter {it}]")
+            with _weights(model, self.eval_params(cfg, state)):
+                results = self.do_test(cfg, model, step=it)
+            for name, res in results.items():
+                print(name, {k: round(v, 3) for k, v in res["bbox"].items()
+                             if isinstance(v, float)})
+
+        return self._train_loop(cfg, state, self.make_train_step(cfg, model),
+                                self._episodic_loader(cfg), schedule, ckpt,
+                                eval_fn=eval_fn)
+
+    @staticmethod
+    def _cls_logits_kernel(model):
+        """(C_base, 256) weight and (C_base,) bias of the pretrained 1x1
+        ``cls_logits`` conv: the distillation target (fcos.py:219-227)."""
+        conv = model.fcos_head.cls_logits
+        w = conv.weight.detach()
+        return w.reshape(w.shape[0], -1).clone(), conv.bias.detach().clone()
+
+    @staticmethod
+    def eval_params(cfg, state) -> Dict[str, torch.Tensor]:
+        """The EMA weights when MODEL_EMA is on (reference
+        meta_fcos_runner.py:692-699), else the live parameters."""
+        if cfg.MODEL_EMA.ENABLED and state.ema is not None:
+            return state.ema
+        return state.params
+
+    # ------------------------------------------------------------- loaders
+    def _episodic_loader(self, cfg):
+        name = cfg.DATASETS.TRAIN[0]
+        ds = MetaDataset(DatasetCatalog.get(name), "episodic_train_both",
+                         num_shot=cfg.MODEL.META_LEARN.SHOT,
+                         num_query_shot=cfg.MODEL.META_LEARN.QUERY_SHOT)
+        return build_episodic_train_loader(
+            ds, _mapper(cfg), episodes_per_batch=cfg.SOLVER.IMS_PER_BATCH,
+            seed=max(cfg.SEED, 0), sampler=cfg.DATALOADER.SAMPLER_TRAIN,
+            repeat_thresh=cfg.DATALOADER.REPEAT_THRESHOLD,
+            device=self.device)
+
+    def _pretrain_loader(self, cfg):
+        """Plain detection batches from the pretrain dataset (few-shot
+        subsets honor MODEL.TFA.TRAIN_SHOT)."""
+        name = cfg.DATASETS.TRAIN[0]
+        try:
+            data = DatasetCatalog.get(name, shot=cfg.MODEL.TFA.TRAIN_SHOT)
+        except TypeError:
+            data = DatasetCatalog.get(name)
+        if isinstance(data, dict) and "records" not in data:
+            raise ValueError(
+                f"{name} is an episodic meta-dataset; the non-episodic "
+                "pretrain loader needs a *_pretrain_* dataset (or set "
+                "MODEL.META_LEARN.EPISODIC_LEARNING: true)")
+        records = data["records"] if isinstance(data, dict) else data
+        return build_pretrain_loader(
+            records, _mapper(cfg), batch_size=cfg.SOLVER.IMS_PER_BATCH,
+            seed=max(cfg.SEED, 0), sampler=cfg.DATALOADER.SAMPLER_TRAIN,
+            repeat_thresh=cfg.DATALOADER.REPEAT_THRESHOLD,
+            device=self.device)
 
     def get_evaluator(self, cfg, dataset_name: str, query_records, metadata):
         """Evaluator dispatch on the dataset's evaluator_type (reference
@@ -279,6 +585,23 @@ class MetaFCOSRunner:
             results[name] = driver.run_repeated(cfg.TEST.REPEAT_TEST)
         write_eval_results_tb(results, cfg.OUTPUT_DIR, step)
         return results
+
+
+class _weights:
+    """Context: ``model`` holds ``params`` (a name -> tensor dict) inside,
+    its own parameters again after."""
+
+    def __init__(self, model, params: Dict[str, torch.Tensor]):
+        self.model, self.params = model, params
+
+    def __enter__(self):
+        self.saved = {k: v.detach().clone()
+                      for k, v in self.model.named_parameters()}
+        self.model.load_state_dict(self.params, strict=False)
+        return self.model
+
+    def __exit__(self, *exc):
+        self.model.load_state_dict(self.saved, strict=False)
 
 
 def _make_plain_fcos_infer(model, grid, dcfg: DecodeCfg,

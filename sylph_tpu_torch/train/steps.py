@@ -1,0 +1,188 @@
+"""Train steps (port of sylph_tpu/train/steps.py) on one card.
+
+Each step takes a batch whose tensors already sit on the model's device
+(the train loaders copy them on their worker thread), applies the device
+RandAugment where the loader shipped drawn ops, assigns targets, runs the
+forward and backward passes and one optimizer update.
+
+``grad_accum = m`` splits the batch into m contiguous micro-groups that act
+as m data-parallel ranks (``TPU.GRAD_ACCUM``, the emulation of the reference
+run's ranks on one card):
+
+  * the loss normalizers are the cross-group means, clamped after dividing
+    by m (``loss_normalizers``), computed once from every group's targets;
+  * each group's losses are backpropagated on their own, the gradients
+    summed in ``.grad`` and then averaged, as are the reported losses;
+  * in episodic training a group's queries are classified against, and
+    their GT filtered to, that group's own episode classes.
+
+With m = 1 this is the plain step. Targets are assigned per group, which
+keeps the assigner's (B, K, M, 4) intermediate at the group's size.
+
+``TPU.STEPS_PER_CALL`` (K optimizer steps in one TPU dispatch) changes no
+numbers and exists for the TPU's dispatch cost; the port runs one step per
+call and raises on larger values.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..ops.assigner import FCOSTargets, assign_fcos_targets
+from ..ops.fcos_losses import (FCOSLossCfg, fcos_episodic_losses,
+                               fcos_pretrain_losses, loss_normalizers)
+from ..ops.image_aug import rand_augment_device
+from .train_state import TrainState
+
+Batch = Dict[str, object]
+
+
+def _check_steps_per_call(steps_per_call: int) -> None:
+    if steps_per_call > 1:
+        raise NotImplementedError(
+            "TPU.STEPS_PER_CALL > 1 batches optimizer steps into one TPU "
+            "dispatch; the port runs one step per call (set it to 1)")
+
+
+def _apply_device_aug(batch: Batch, img_key: str, ops_key: str,
+                      params_key: str, sizes_key: str) -> Batch:
+    """RandAugment on the card where the loader drew op ids (INPUT.
+    RAND_AUGMENT with TPU.DEVICE_RANDAUG; the canvases are BGR, which the
+    mapper guarantees for this mode)."""
+    if ops_key not in batch:
+        return batch
+    batch = dict(batch)
+    batch[img_key] = rand_augment_device(
+        batch[img_key], batch.pop(ops_key), batch.pop(params_key),
+        batch.pop(sizes_key), bgr=True)
+    return batch
+
+
+class _Grid:
+    def __init__(self, grid, device):
+        self.locations = torch.as_tensor(grid.locations, device=device)
+        self.strides = torch.as_tensor(grid.strides, device=device)
+        self.size_ranges = torch.as_tensor(grid.size_ranges, device=device)
+
+
+def _assign(g: _Grid, boxes, labels, valid, center_sample, radius):
+    return assign_fcos_targets(g.locations, g.strides, g.size_ranges, boxes,
+                               labels, valid, center_sample=center_sample,
+                               radius=radius)
+
+
+def _cat_targets(ts) -> FCOSTargets:
+    return FCOSTargets(*(torch.cat(x, 0) for x in zip(*ts)))
+
+
+def _run_micro_groups(state: TrainState, m: int,
+                      loss_at: Callable[[int], Dict[str, torch.Tensor]]
+                      ) -> Dict[str, torch.Tensor]:
+    """Backpropagate each group's summed losses, average the gradients and
+    losses over the groups, apply one update; returns the losses."""
+    state.tx.zero_grad()
+    acc: Optional[Dict[str, torch.Tensor]] = None
+    for gi in range(m):
+        losses = loss_at(gi)
+        total = sum(losses.values())
+        if total.requires_grad:
+            total.backward()
+        det = {k: v.detach() for k, v in losses.items()}
+        acc = det if acc is None else {k: acc[k] + det[k] for k in acc}
+    if m > 1:
+        scale = 1.0 / m
+        grads = [p.grad for p in state.tx.params if p.grad is not None]
+        if grads:
+            torch._foreach_mul_(grads, scale)
+        acc = {k: v * scale for k, v in acc.items()}
+    state.apply_updates()
+    return acc
+
+
+def make_pretrain_train_step(model, grid, loss_cfg: FCOSLossCfg,
+                             center_sample: bool = True, radius: float = 1.5,
+                             steps_per_call: int = 1, grad_accum: int = 1
+                             ) -> Callable[[TrainState, Batch],
+                                           Tuple[TrainState, Dict]]:
+    """Batch: images (B, H, W, 3) uint8 BGR, gt_boxes (B, M, 4), gt_labels
+    (B, M), gt_valid (B, M), and optionally aug_ops, aug_params,
+    image_sizes; B divisible by ``grad_accum``."""
+    _check_steps_per_call(steps_per_call)
+    m = max(1, grad_accum)
+    g = _Grid(grid, next(model.parameters()).device)
+
+    def step(state: TrainState, batch: Batch):
+        batch = _apply_device_aug(batch, "images", "aug_ops", "aug_params",
+                                  "image_sizes")
+        images = batch["images"]
+        mb = images.shape[0] // m
+        sl = [slice(i * mb, (i + 1) * mb) for i in range(m)]
+        targets = [_assign(g, batch["gt_boxes"][s], batch["gt_labels"][s],
+                           batch["gt_valid"][s], center_sample, radius)
+                   for s in sl]
+        npa, ld = loss_normalizers(_cat_targets(targets), m)
+
+        def loss_at(gi):
+            out = model.forward_base(images[sl[gi]])
+            return fcos_pretrain_losses(out.logits, out.reg, out.ctrness,
+                                        out.iou, targets[gi], loss_cfg,
+                                        num_pos_avg=npa, loss_denorm=ld)
+
+        return state, _run_micro_groups(state, m, loss_at)
+
+    return step
+
+
+def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
+                             num_shots: int, center_sample: bool = True,
+                             radius: float = 1.5, pretrained_kernel=None,
+                             steps_per_call: int = 1, grad_accum: int = 1
+                             ) -> Callable[[TrainState, Batch],
+                                           Tuple[TrainState, Dict]]:
+    """Batch (E episodes): support_images (E*shot, Hs, Ws, 3),
+    support_boxes (E*shot, 4), support_box_valid (E*shot,), query_images
+    (E*Q, H, W, 3), query_gt_{boxes,labels,valid} (E*Q, M, ...),
+    episode_class_ids (E,), and optionally query_aug_ops,
+    query_aug_params, query_image_sizes; E divisible by ``grad_accum``."""
+    _check_steps_per_call(steps_per_call)
+    m = max(1, grad_accum)
+    g = _Grid(grid, next(model.parameters()).device)
+
+    def step(state: TrainState, batch: Batch):
+        batch = _apply_device_aug(batch, "query_images", "query_aug_ops",
+                                  "query_aug_params", "query_image_sizes")
+        ids_m = batch["episode_class_ids"].reshape(m, -1)     # (m, E/m)
+        labels = batch["query_gt_labels"]                     # (Bq, M)
+        bq, mx = labels.shape
+        # group g's queries see only group g's episode classes
+        lab_m = labels.reshape(m, bq // m, mx)
+        in_ep = (lab_m[..., None] == ids_m[:, None, None, :]).any(-1)
+        valid = batch["query_gt_valid"] & in_ep.reshape(bq, mx)
+        qmb = bq // m
+        smb = batch["support_images"].shape[0] // m
+        qs = [slice(i * qmb, (i + 1) * qmb) for i in range(m)]
+        ss = [slice(i * smb, (i + 1) * smb) for i in range(m)]
+        targets = [_assign(g, batch["query_gt_boxes"][s], labels[s],
+                           valid[s], center_sample, radius) for s in qs]
+        npa, ld = loss_normalizers(_cat_targets(targets), m)
+
+        def loss_at(gi):
+            out, codes = model.forward_episodic_train(
+                batch["support_images"][ss[gi]],
+                batch["support_boxes"][ss[gi]],
+                batch["support_box_valid"][ss[gi]],
+                batch["query_images"][qs[gi]], num_shots)
+            losses = fcos_episodic_losses(
+                out.logits, out.reg, out.ctrness, targets[gi], ids_m[gi],
+                loss_cfg, class_code=codes,
+                pretrained_kernel=pretrained_kernel, num_pos_avg=npa,
+                loss_denorm=ld)
+            if "snnl" in codes:
+                losses["loss_snnl"] = codes["snnl"]
+            return losses
+
+        return state, _run_micro_groups(state, m, loss_at)
+
+    return step

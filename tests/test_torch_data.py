@@ -203,5 +203,13 @@ def test_pad_to_canvas_out_matches_jax():
 
 
 def test_map_query_train_is_not_ported(coco):
-    with pytest.raises(NotImplementedError):
-        coco["mapper"].map_query_train({}, np.random.RandomState(0))
+    """The training slice ported ``map_query_train`` (the name predates
+    it): a train record maps exactly as the JAX mapper maps it, the drawn
+    RandAugment ops included."""
+    data = catalog.DatasetCatalog.get("coco_pretrain_train_base")
+    records = data["records"] if isinstance(data, dict) else data
+    for rec in records[:4]:
+        got = coco["mapper"].map_query_train(rec, np.random.RandomState(4))
+        want = coco["jmapper"].map_query_train(rec, np.random.RandomState(4))
+        assert "aug_ops" in got
+        assert_batches_equal([got], [want])

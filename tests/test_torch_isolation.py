@@ -1,4 +1,4 @@
-"""The port imports nothing of JAX, flax or the JAX package.
+"""The port imports nothing of JAX, flax, optax, orbax or the JAX package.
 
 A fresh interpreter imports every module of ``sylph_tpu_torch`` and
 ``chip_smoke`` (without running its ``main``) and then inspects
@@ -21,7 +21,8 @@ names = ["sylph_tpu_torch", "chip_smoke"] + [
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sylph_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "sylph_tpu"))
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
@@ -39,5 +40,15 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "sylph_tpu_torch.utils.convert_weights",
                 "sylph_tpu_torch.evaluation.meta_eval",
                 "sylph_tpu_torch.data.loader",
-                "sylph_tpu_torch.ops.image_ops", "chip_smoke"}
+                "sylph_tpu_torch.ops.image_ops", "chip_smoke",
+                "sylph_tpu_torch.ops.losses", "sylph_tpu_torch.ops.assigner",
+                "sylph_tpu_torch.ops.fcos_losses",
+                "sylph_tpu_torch.ops.image_aug",
+                "sylph_tpu_torch.train.optimizer",
+                "sylph_tpu_torch.train.train_state",
+                "sylph_tpu_torch.train.steps",
+                "sylph_tpu_torch.train.checkpoint",
+                "sylph_tpu_torch.utils.events",
+                "sylph_tpu_torch.data.samplers",
+                "sylph_tpu_torch.tools.train_net"}
     assert expected <= set(report["imported"])

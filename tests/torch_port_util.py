@@ -5,8 +5,26 @@ the port with ``sylph_tpu_torch.utils.convert_weights.state_dict_from_jax``;
 inputs are made from a seed with numpy and handed to both packages.
 """
 
+import copy
+import re
+
 import jax
+import jax.numpy as jnp
 import numpy as np
+import optax
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """Two torch threads for the module's tests, restored after: the suite
+    runs in several worker processes on one host, and each worker's torch
+    would otherwise start a thread per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_numpy(tree):
@@ -160,3 +178,226 @@ def assert_results_close(got, want, atol=1e-4):
             assert math.isnan(got[k]), k
         else:
             assert abs(got[k] - w) <= atol, (k, got[k], w)
+
+
+# ------------------------------------------------------------ train steps
+# shared by tests/test_torch_train.py and tests/test_torch_train_episodic.py
+CANVAS = (64, 96)
+SUPPORT = (64, 64)
+PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def flat_paths(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flat_paths(v, p))
+        else:
+            out[p] = v
+    return out
+
+
+def freeze_with(jcfg, **kw):
+    from sylph_tpu.runner import meta_fcos_runner as jrunner
+    f = jrunner._freeze_cfg(jcfg)
+    f.update(kw)
+    return f
+
+
+FROZEN_BN = re.compile(r"/(bn\d+|stem_bn1|shortcut_bn)/(scale|bias)$")
+
+
+def jax_mask(params, fcfg):
+    """JAX's freeze mask with every FrozenBN leaf frozen."""
+    from sylph_tpu.train import optimizer as jopt
+    mask = jopt.build_freeze_mask(params, fcfg)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, m: bool(m) and not FROZEN_BN.search(
+            "/" + "/".join(str(k.key) for k in path)), mask)
+
+
+def jax_tx(params, kw):
+    """``jopt.build_optimizer`` with its freeze mask taken from
+    ``jax_mask``: the same chain, masked the same way."""
+    from sylph_tpu.train import optimizer as jopt
+    kw = dict(kw)
+    fcfg = kw.pop("freeze_cfg")
+    inner, _ = jopt.build_optimizer(params, **kw)
+    mask = jax_mask(params, fcfg)
+    return optax.chain(
+        optax.masked(optax.set_to_zero(), jax.tree.map(lambda m: not m,
+                                                       mask)),
+        optax.masked(inner, mask))
+
+
+def _aug(rng, n):
+    ops = np.stack([rng.choice(8, 2, replace=False) for _ in range(n)])
+    params = np.zeros((n, 2), np.float32)
+    for i, row in enumerate(ops):
+        for j, op in enumerate(row):
+            params[i, j] = {6: 4.0, 7: 128.0}.get(int(op),
+                                                  1.0 + rng.uniform(-.4, .4))
+    sizes = np.stack([rng.randint(40, CANVAS[0] + 1, n),
+                      rng.randint(50, CANVAS[1] + 1, n)], -1).astype(np.int32)
+    return ops.astype(np.int32), params, sizes
+
+
+def _gt(rng, b, m=4):
+    xy = rng.uniform(0, 40, (b, m, 2))
+    wh = rng.uniform(12, 50, (b, m, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    labels = rng.randint(0, 5, (b, m)).astype(np.int32)
+    valid = np.ones((b, m), bool)
+    valid[:, -1] = False
+    return boxes, labels, valid
+
+
+def _images(rng, b, hw):
+    return rng.randint(60, 200, (b, *hw, 3)).astype(np.uint8)
+
+
+def pretrain_batch(seed=0, b=4):
+    rng = np.random.RandomState(seed)
+    boxes, labels, valid = _gt(rng, b)
+    ops, params, sizes = _aug(rng, b)
+    return {"images": _images(rng, b, CANVAS), "gt_boxes": boxes,
+            "gt_labels": labels, "gt_valid": valid, "aug_ops": ops,
+            "aug_params": params, "image_sizes": sizes}
+
+
+def episodic_batch(seed=0, e=4, shot=2):
+    rng = np.random.RandomState(seed)
+    boxes, labels, valid = _gt(rng, e)
+    ids = np.array([0, 2, 3, 4], np.int32)[:e]
+    labels[:, 0] = ids  # each query shows its own class
+    labels[:, 1] = ids[::-1]
+    ops, params, sizes = _aug(rng, e)
+    sx = rng.uniform(2, 20, (e * shot, 2))
+    return {
+        "support_images": _images(rng, e * shot, SUPPORT),
+        "support_boxes": np.concatenate([sx, sx + 30], -1).astype(np.float32),
+        "support_box_valid": np.ones((e * shot,), bool),
+        "query_images": _images(rng, e, CANVAS), "query_gt_boxes": boxes,
+        "query_gt_labels": labels, "query_gt_valid": valid,
+        "episode_class_ids": ids, "query_aug_ops": ops,
+        "query_aug_params": params, "query_image_sizes": sizes}
+
+
+def torch_batch(batch):
+    from sylph_tpu_torch.data.loader import batch_to_device
+    return batch_to_device(batch, "cpu")
+
+
+def opt_kw(jcfg, freeze):
+    return dict(base_lr=0.02, momentum=0.9, weight_decay=1e-4,
+                warmup_iters=2, warmup_factor=0.25, steps=(2,), gamma=0.5,
+                clip_grad_norm=1.0, freeze_cfg=freeze)
+
+
+def run_steps(pair_, episodic, batch, n=3, grad_accum=1, freeze_kw=None,
+              snnl=False, distill=0.0):
+    """n steps in both packages from the same weights; returns the losses
+    per step as (jax, port) pairs, JAX's parameters after as a port
+    state_dict, the port's model and its train state."""
+    from sylph_tpu.ops.locations import build_location_grid as jax_grid
+    from sylph_tpu.parallel.mesh import create_mesh, shard_batch
+    from sylph_tpu.runner import meta_fcos_runner as jrunner
+    from sylph_tpu.train import steps as jsteps
+    from sylph_tpu.train.train_state import create_train_state as jax_state
+    from sylph_tpu_torch import runner as trunner
+    from sylph_tpu_torch.train import optimizer as topt
+    from sylph_tpu_torch.train import steps as tsteps
+    from sylph_tpu_torch.train.train_state import TrainState
+    from sylph_tpu_torch.utils.convert_weights import state_dict_from_jax
+    jcfg, jmodel, params, tcfg, tmodel = pair_
+    jcfg, tcfg = jcfg.clone(), tcfg.clone()
+    for c in (jcfg, tcfg):
+        c.defrost()
+        c.MODEL.META_LEARN.CODE_GENERATOR.CONTRASTIVE_LOSS = \
+            "snnl" if snnl else ""
+        c.MODEL.META_LEARN.CODE_GENERATOR.DISTILLATION_LOSS_WEIGHT = distill
+    freeze = freeze_with(jcfg, **(freeze_kw or {}))
+    lc_j, lc_t = jrunner._loss_cfg(jcfg), trunner._loss_cfg(tcfg)
+    grid = jax_grid(CANVAS, (8, 16, 32, 64, 128), [64, 128, 256, 512])
+    kw = opt_kw(jcfg, freeze)
+
+    if snnl:
+        jmodel = jrunner.build_model_from_cfg(jcfg)
+    tx = jax_tx(params, kw)
+    jst = jax_state(jax.tree.map(jnp.array, params), tx)
+    mesh = create_mesh(1)
+    model = copy.deepcopy(tmodel)
+    if snnl:
+        model.code_generator.contrastive_loss = "snnl"
+    ttx, _ = topt.build_optimizer(model, **kw)
+    tst = TrainState(model, ttx)
+    if episodic:
+        kernel_t = (trunner.MetaFCOSRunner._cls_logits_kernel(model)
+                    if distill else None)
+        kernel_j = (jrunner.MetaFCOSRunner._cls_logits_kernel(params)
+                    if distill else None)
+        jstep = jsteps.make_episodic_train_step(
+            jmodel, tx, grid, lc_j, mesh, num_shots=2,
+            pretrained_kernel=kernel_j, grad_accum=grad_accum)
+        tstep = tsteps.make_episodic_train_step(
+            model, grid, lc_t, num_shots=2, pretrained_kernel=kernel_t,
+            grad_accum=grad_accum)
+    else:
+        jstep = jsteps.make_pretrain_train_step(
+            jmodel, tx, grid, lc_j, mesh, grad_accum=grad_accum)
+        tstep = tsteps.make_pretrain_train_step(model, grid, lc_t,
+                                                grad_accum=grad_accum)
+    losses = []
+    for i in range(n):
+        sb = shard_batch(mesh, batch)
+        if episodic:
+            jst, jm = jstep(jst, sb, jax.random.PRNGKey(i))
+        else:
+            jst, jm = jstep(jst, sb)
+        _, tm = tstep(tst, torch_batch(batch))
+        losses.append(({k: float(v) for k, v in jm.items()},
+                       {k: float(v) for k, v in tm.items()}))
+    js = jst.unpack() if hasattr(jst, "unpack") else jst
+    return (losses, state_dict_from_jax(jax.tree.map(np.asarray, js.params)),
+            model, tst)
+
+
+def check_run(result, start_model):
+    """Losses within rtol 1e-4, trainable parameters within PARAM_TOL of
+    JAX's, frozen ones bit-identical in both packages; returns the
+    trainable names."""
+    losses, want, model, tst = result
+    for jm, tm in losses:
+        assert sorted(jm) == sorted(tm)
+        for k in jm:
+            assert np.isfinite(tm[k])
+            np.testing.assert_allclose(tm[k], jm[k], rtol=1e-4, atol=1e-7,
+                                       err_msg=k)
+    start = dict(start_model.named_parameters())
+    trainable = set(tst.tx.names)
+    moved = 0
+    for n, p in model.named_parameters():
+        if n in trainable:
+            np.testing.assert_allclose(p.detach().numpy(), want[n].numpy(),
+                                       err_msg=n, **PARAM_TOL)
+            moved += int(not torch.equal(p, start[n]))
+        else:
+            assert torch.equal(p, start[n]), n
+            assert torch.equal(want[n], start[n]), n
+    assert moved > 0 and tst.step == len(losses)
+    return trainable
+
+
+def check_episodic_steps(pair_, **kw):
+    """``run_steps`` on the episodic batch, checked by ``check_run``; the
+    finetune freeze leaves the code generator trainable and the bbox tower
+    frozen, and the snnl and distillation losses show when asked for."""
+    result = run_steps(pair_, True, episodic_batch(1), **kw)
+    trainable = check_run(result, pair_[4])
+    assert "code_generator.tower_conv0.weight" in trainable
+    assert "fcos_head.bbox_tower.conv0.weight" not in trainable
+    if kw.get("snnl"):
+        assert "loss_snnl" in result[0][0][1]
+    if kw.get("distill"):
+        assert "loss_gen_distill" in result[0][0][1]
