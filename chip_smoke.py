@@ -61,13 +61,43 @@ Phases, in order; any failure raises and the script exits non-zero:
      1 warm-up and 2 counted steps, every loss finite and the backbone moved.
      Phases 8 and 9 each print a ``train`` JSON line (median step ms, data
      and step wait, images per second, peak memory, losses, the card).
-     Training never reaches the NMS kernel: its launches there must be 0.
+     Training never reaches the NMS kernel: its launches there must be 0;
+ 10. NMS at the two-stage shapes, each identical to the twin, timed from
+     CUDA-graph replays beside its bound and the twin's time, with the
+     ranking route it took: the RPN's (B=8, K=5000, M=1000, IoU 0.7, the 5
+     levels as classes; counting route) and the ROI stage's (B=1, K=337,000
+     and 1,103,000, M=300, IoU 0.5: 1000 proposals each repeated over E
+     classes, near-uniform scores with ties; radix route), then one class
+     of 1,103,000 identical boxes (the scan walks the whole list);
+ 11. the two-stage meta-test at full width: Meta-RCNN-FPN-finetune.yaml
+     (R-50, FPN P2-P6, RPN top-k 1000/1000, 2xFC-1024, codes of 1024), bf16,
+     random weights from seed 0, EVAL_BATCH 8, CLASS_BATCH 8, 10 shots at
+     384x384, REPEAT_TEST 1, on lvis_meta_val_novelr of a synthetic LVIS
+     tree (48 train and 24 val images of 480x640); a warm-up
+     ``MetaFasterRCNNRunner.do_test``, then a counted one: every RPN and
+     ROI NMS call equal to the twin, two launches per query batch, a
+     complete LVIS AP dict, the 1024-wide ``.npz`` codes reloaded and
+     normalized equal to the driver's bank (1e-6). Then one query batch
+     through ``make_rcnn_infer`` with a 337-row bank (the registered rows
+     and rows drawn from seed 0 through ``normalize_code``): the ROI NMS on
+     real decode at K=337,000 (radix route), equal to the twin. ROIAlign's
+     time and peak memory on one image's 1000 proposals;
+ 12. plain two-stage evaluation: Meta-RCNN-FPN-pretrain.yaml (1103
+     classes) ``do_test`` on 8 images of lvis_pretrain_val_basev1: the ROI
+     NMS at K=1,103,000 on real decode, every call equal to the twin, a
+     complete AP dict. Phases 11-12 print one ``rcnn`` JSON line;
+ 13. two-stage card against CPU (fp32, TF32 off): ``forward_instances``
+     (a 3-row bank) and ``forward_base_instances`` with the cosine head,
+     R-50 at a 256x256 canvas, the same seeded weights on cuda and cpu:
+     normalized codes 1e-5, detections boxes 0.05, scores 1e-3, classes and
+     valid counts equal (each image's detections taken in class and score
+     order).
 
 The last lines are the card's ``name, power.limit``, one JSON object
-listing every kernel with its launches (in all and by path), error and
-times (``earlier_ms``: the first design's time on the serving path's NMS
-input; ``meta_test_ms``: the kernel on a B=8 meta-test batch), and
-``{"ok": true, "device": {...}}``.
+listing every kernel with its launches (in all, by path and by ranking
+route), error and times (``earlier_ms``: the first design's time on the
+serving path's NMS input; ``meta_test_ms``: the kernel on a B=8 meta-test
+batch; ``shapes``: phase 10's cases), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -84,9 +114,17 @@ import numpy as np
 import torch
 
 from sylph_tpu_torch import get_default_cfg
-from sylph_tpu_torch.data.catalog import register_all_coco
-from sylph_tpu_torch.data.synthetic import make_synthetic_coco
+from sylph_tpu_torch.data.catalog import (DatasetCatalog, register_all_coco,
+                                          register_all_lvis)
+from sylph_tpu_torch.data.loader import build_query_loader
+from sylph_tpu_torch.data.meta_dataset import MetaDataset
+from sylph_tpu_torch.data.synthetic import (make_synthetic_coco,
+                                            make_synthetic_lvis)
 from sylph_tpu_torch.evaluation import meta_eval
+from sylph_tpu_torch.meta_faster_rcnn_runner import (
+    MetaFasterRCNNRunner, build_rcnn_model_from_cfg, eval_anchor_grid)
+from sylph_tpu_torch.models import rcnn
+from sylph_tpu_torch.ops.roi_align import multilevel_roi_align
 from sylph_tpu_torch.ops import nms_kernel
 from sylph_tpu_torch.ops.decode import select_candidates
 from sylph_tpu_torch.ops.image_ops import resize_shortest_edge_device
@@ -97,12 +135,14 @@ from sylph_tpu_torch.predictor import SylphPredictor
 from sylph_tpu_torch.ops.assigner import assign_fcos_targets
 from sylph_tpu_torch.ops.image_aug import rand_augment_device
 from sylph_tpu_torch.ops.locations import build_location_grid
-from sylph_tpu_torch.runner import (MetaFCOSRunner, _freeze_cfg,
+from sylph_tpu_torch.runner import (MetaFCOSRunner, _freeze_cfg, _mapper,
                                     build_model_from_cfg)
 from sylph_tpu_torch.data.loader import batch_to_device
 from sylph_tpu_torch.data.transforms import draw_rand_augment
 from sylph_tpu_torch.tools.profile_meta_test import DATA as META_TEST_DATA
-from sylph_tpu_torch.tools.profile_meta_test import meta_test_cfg
+from sylph_tpu_torch.tools.profile_meta_test import (RCNN_DATA,
+                                                     meta_test_cfg,
+                                                     rcnn_meta_test_cfg)
 from sylph_tpu_torch.tools.profile_train import train_cfg
 from sylph_tpu_torch.train.checkpoint import CheckpointManager
 from sylph_tpu_torch.utils.events import peak_memory_gb
@@ -127,6 +167,24 @@ def card_line() -> str:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip()
+
+
+def reset_counts() -> None:
+    """The start of a main-path window: the kernel's launch counts, in all
+    and by route, to 0."""
+    nms_kernel.LAUNCHES = 0
+    for route in nms_kernel.LAUNCHES_BY_ROUTE:
+        nms_kernel.LAUNCHES_BY_ROUTE[route] = 0
+
+
+def read_counts(what: str):
+    """The end of a main-path window: -> (launches, launches by route);
+    raises if the routes do not add up to the launches."""
+    launches, routes = nms_kernel.LAUNCHES, dict(nms_kernel.LAUNCHES_BY_ROUTE)
+    if sum(routes.values()) != launches:
+        raise AssertionError(f"{what}: {launches} NMS launches, but by route "
+                             f"{routes}")
+    return launches, routes
 
 
 def time_ms(fn, reps: int, warmup: int = 2, rounds: int = 5,
@@ -351,7 +409,7 @@ def phase_serving(device: str = "cuda"):
             pre_nms_thresh=0.0 if full_k else th)
 
     # ---- the main path: counts are read around this block alone
-    nms_kernel.LAUNCHES = 0
+    reset_counts()
     reg_ms = register(pred, rng, ["class_a", "class_b", "class_c"], shots)
     results, lat_ms = [], []
     for img, full_k, dev_pre in requests:
@@ -359,8 +417,9 @@ def phase_serving(device: str = "cuda"):
         t0 = time.perf_counter()
         results.append(pred(img, device_preprocess=dev_pre))
         lat_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = nms_kernel.LAUNCHES
+    counts = read_counts("serve")
     # ---- end of the main path
+    launches = counts[0]
 
     log(f"[serve] registration ms per class ({shots} shots at "
         f"{tuple(cfg.TPU.SUPPORT_CANVAS)}): "
@@ -415,7 +474,7 @@ def phase_serving(device: str = "cuda"):
             timing = time_nms_on(cand, pred.decode_cfg)
     log("[serve] every request's detections equal the twin-decoded ones")
     check_device_preprocess(pred, images)
-    return launches, timing
+    return counts, timing
 
 
 def check_device_preprocess(pred: SylphPredictor, images) -> None:
@@ -524,7 +583,7 @@ def check_ap_dict(name: str, bbox: dict, class_names) -> None:
 
 
 def phase_meta_test(work: str):
-    """The two-phase meta-test at full width; returns its NMS launches and
+    """The two-phase meta-test at full width; returns its NMS launch counts and
     the kernel's time on one of its B=8 batches."""
     root = os.path.join(work, "coco")
     make_synthetic_coco(root, **META_TEST_DATA)
@@ -548,14 +607,15 @@ def phase_meta_test(work: str):
     meta_eval.decode_proposals = recording
     try:
         # ---- the main path: counts are read around this block alone
-        nms_kernel.LAUNCHES = 0
+        reset_counts()
         t0 = time.perf_counter()
         results = runner.do_test(cfg, model)
         wall = time.perf_counter() - t0
-        launches = nms_kernel.LAUNCHES
+        counts = read_counts("meta_test")
         # ---- end of the main path
     finally:
         meta_eval.decode_proposals = decode
+    launches = counts[0]
 
     batches = 0
     for name, res in results.items():
@@ -607,8 +667,8 @@ def phase_meta_test(work: str):
     log(f"[meta-test] {novel}: the .npz directory reloads into the "
         f"predictor's bank equal to the driver's ({n} rows, 1e-6)")
     meta_ms, meta_bound, meta_by = time_nms_meta(*recorded[0][:2])
-    return launches, dict(meta_test_ms=meta_ms, meta_test_bound_ms=meta_bound,
-                          meta_test_bound_by=meta_by)
+    return counts, dict(meta_test_ms=meta_ms, meta_test_bound_ms=meta_bound,
+                        meta_test_bound_by=meta_by)
 
 
 def phase_card_vs_cpu(devices=("cuda", "cpu")) -> None:
@@ -790,7 +850,7 @@ def _train_line(mode: str, cfg, runner, counted, images_per_step, card):
 
 
 def phase_train_episodic(work: str, card: str):
-    """Meta-training at full width; returns its NMS launches and the
+    """Meta-training at full width; returns its NMS launch counts and the
     ``train`` line."""
     cfg = train_cfg("episodic", 4)
     runner = MetaFCOSRunner()
@@ -798,9 +858,9 @@ def phase_train_episodic(work: str, card: str):
     start = {k: v.clone() for k, v in model.state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts are read around this block alone
-    nms_kernel.LAUNCHES = 0
+    reset_counts()
     _, state = runner.do_train(cfg, model)
-    launches = nms_kernel.LAUNCHES
+    counts = read_counts("train_episodic")
     # ---- end of the main path
     for i, m in enumerate(runner.train_metrics):
         if not all(np.isfinite(v) for v in m.values()):
@@ -826,7 +886,7 @@ def phase_train_episodic(work: str, card: str):
         f"{line['peak_memory_gb']:.2f} GB; {len(moved)} tensors moved, "
         f"{len(start) - len(moved)} unchanged")
     check_resume(cfg, runner, state, work)
-    return launches, line
+    return counts, line
 
 
 def check_resume(cfg, runner, state, work: str) -> None:
@@ -864,9 +924,9 @@ def phase_train_pretrain(card: str, batch: int = 128):
     start = {k: v.clone() for k, v in model.state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts are read around this block alone
-    nms_kernel.LAUNCHES = 0
+    reset_counts()
     runner.do_train(cfg, model)
-    launches = nms_kernel.LAUNCHES
+    counts = read_counts("train_pretrain")
     # ---- end of the main path
     for i, m in enumerate(runner.train_metrics):
         if not all(np.isfinite(v) for v in m.values()):
@@ -881,7 +941,413 @@ def phase_train_pretrain(card: str, batch: int = 128):
         f"{cfg.TPU.GRAD_ACCUM}: median step {line['median_step_ms']:.1f} ms, "
         f"{line['images_per_s']:.1f} img/s, peak "
         f"{line['peak_memory_gb']:.2f} GB")
-    return launches, line
+    return counts, line
+
+
+# ------------------------------------------------------------- two-stage
+def roi_stage_inputs(gen: torch.Generator, e: int, p: int = 1000):
+    """One image's ROI-stage NMS input, built as ``roi_candidates`` builds
+    it: ``p`` proposal boxes each repeated over ``e`` classes, near-uniform
+    softmax scores rounded to multiples of 2^-20 (ties everywhere), a score
+    threshold of 1e-4."""
+    ctr = torch.rand((p, 2), generator=gen) * torch.tensor([1344.0, 1024.0])
+    wh = 8 + torch.rand((p, 2), generator=gen) * 300
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+    probs = torch.softmax(torch.randn((p, e + 1), generator=gen) * 0.5,
+                          -1)[:, :-1]
+    flat = (probs * 2 ** 20).round().reshape(1, -1) / 2 ** 20
+    return [t.cuda() for t in (
+        boxes.repeat_interleave(e, dim=0)[None], flat,
+        torch.arange(e).repeat(p)[None], flat > 1e-4)]
+
+
+def rpn_inputs(gen: torch.Generator, b: int = 8, per_level: int = 1000):
+    """The RPN's NMS input: 5 levels of ``per_level`` proposals, the level
+    as the class, boxes crowded around 400 centres (anchors overlap), sigmoid
+    scores rounded to 1/1024 (ties)."""
+    k = 5 * per_level
+    centres = torch.rand((b, 400, 2), generator=gen) * 1200
+    pick = torch.randint(0, 400, (b, k), generator=gen)
+    ctr = centres.gather(1, pick[..., None].expand(-1, -1, 2)) \
+        + torch.randn((b, k, 2), generator=gen) * 8
+    wh = 32 * 2 ** torch.arange(5).repeat_interleave(per_level)[None, :, None]
+    wh = wh * (0.7 + 0.6 * torch.rand((b, k, 2), generator=gen))
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+    scores = (torch.sigmoid(torch.randn((b, k), generator=gen) * 2)
+              * 1024).round() / 1024
+    levels = torch.arange(5).repeat_interleave(per_level)[None].expand(b, -1)
+    valid = torch.rand((b, k), generator=gen) > 0.02
+    return [t.cuda() for t in (boxes, scores, levels.contiguous(), valid)]
+
+
+def check_two_stage_case(inputs, m: int, thr: float, what: str,
+                         reps: int = 20):
+    """One case: kernel equal to the twin, the route it took, the kernel's
+    CUDA-graph time beside its bound, the twin's time."""
+    boxes, scores, classes, valid = inputs
+    reset_counts()
+    got = batched_multiclass_nms(boxes, scores, classes, valid, thr, m)
+    torch.cuda.synchronize()
+    route = [r for r, n in read_counts(what)[1].items() if n]
+    want = batched_multiclass_nms(boxes, scores, classes, valid, thr, m,
+                                  impl="reference")
+    for name, g, w in zip(("boxes", "scores", "classes", "ok", "idx"), got,
+                          want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"NMS kernel != twin in {name}: {what}")
+    shifted, *planes = nms_planes(boxes, scores, classes, valid)
+    ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, thr, m), reps,
+                 graph=True)
+    plain_ms = time_ms(lambda: nms_select_reference(shifted, scores, valid,
+                                                    thr, m), 1, warmup=1,
+                       rounds=3)
+    bound_ms, bound_by = nms_bound_ms(scores, valid, got[4], got[3])
+    b, k = scores.shape
+    log(f"[nms-2stage] {what}: identical to the twin, route {route}; "
+        f"kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, bound {bound_ms:.6f} "
+        f"ms ({bound_by}), {int(got[3].sum())} picks of "
+        f"{int(valid.sum())} alive")
+    return dict(case=what, b=b, k=k, m=m, route=route[0], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_nms_two_stage():
+    gen = torch.Generator().manual_seed(3)
+    shapes = [check_two_stage_case(rpn_inputs(gen), 1000, 0.7,
+                                   "RPN B=8 K=5000 M=1000")]
+    if shapes[0]["route"] != "count":
+        raise AssertionError("the RPN's K=5000 should take the counting route")
+    for e in (337, 1103):
+        shapes.append(check_two_stage_case(
+            roi_stage_inputs(gen, e), 300, 0.5,
+            f"ROI B=1 K={e * 1000} M=300", reps=10))
+    k = 1_103_000
+    same = torch.tensor([300.0, 200.0, 700.0, 500.0]).expand(1, k, 4)
+    shapes.append(check_two_stage_case(
+        [same.contiguous().cuda(), torch.rand((1, k), generator=gen).cuda(),
+         torch.zeros((1, k), dtype=torch.long).cuda(),
+         torch.ones((1, k), dtype=torch.bool).cuda()], 300, 0.5,
+        f"identical boxes B=1 K={k} M=300", reps=3))
+    if any(c["route"] != "radix" for c in shapes[1:]):
+        raise AssertionError("the ROI-stage shapes should take the radix "
+                             "route")
+    return shapes
+
+
+class NMSRecorder:
+    """Records every ``batched_multiclass_nms`` call the two-stage model
+    makes by device (the RPN's and the ROI stage's); ``check`` runs each
+    again with the twin on the card and requires identical results."""
+
+    def __enter__(self):
+        self.calls = []
+        self.orig = rcnn.batched_multiclass_nms
+
+        def recording(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            if kwargs.get("impl") is None:
+                self.calls.append((args, out))
+            return out
+
+        rcnn.batched_multiclass_nms = recording
+        return self
+
+    def __exit__(self, *exc):
+        rcnn.batched_multiclass_nms = self.orig
+
+    def check(self, what: str):
+        """-> (number of calls, their (B, K) shapes)."""
+        shapes = []
+        with torch.inference_mode():
+            for i, (args, got) in enumerate(self.calls):
+                want = self.orig(*args, impl="reference")
+                shapes.append(tuple(args[1].shape))
+                for name, g, w in zip(("boxes", "scores", "classes", "ok",
+                                       "idx"), got, want):
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"{what}: NMS call {i} (B, K = {shapes[-1]}) "
+                            f"differs from the twin in {name}")
+        self.calls = []
+        return len(shapes), shapes
+
+
+def check_lvis_ap(name: str, bbox: dict, classes, meta: bool) -> None:
+    """The AP keys, one per class, and on a meta split (whose categories
+    carry LVIS frequencies) APr/APc/APf and every key's REPEAT_TEST std."""
+    want = ["AP", "AP50", "AP75", "APs", "APm", "APl"] \
+        + [f"AP-{c}" for c in classes] + (["APr", "APc", "APf"] if meta
+                                          else [])
+    if meta:
+        want += [f"{k}_std" for k in want]
+    missing = [k for k in want if not isinstance(bbox.get(k), float)]
+    if missing:
+        raise AssertionError(f"{name}: AP dict lacks {missing}")
+
+
+def query_batch(cfg, dataset_dict, device="cuda"):
+    """The first query batch of ``dataset_dict`` on the card."""
+    ds = MetaDataset(dataset_dict, "episodic_test_queryset",
+                     num_shot=cfg.MODEL.META_LEARN.EVAL_SHOT)
+    loader = build_query_loader(ds, _mapper(cfg),
+                                batch_size=cfg.TPU.EVAL_BATCH)
+    batch = next(iter(loader))
+    return (torch.as_tensor(batch["images"], device=device),
+            torch.as_tensor(batch["image_sizes"], device=device))
+
+
+def roi_align_cost(model, images, sizes, cfg):
+    """ROIAlign of one image's proposals at P2-P5 (as ``roi_forward`` runs
+    it): ms on the card (median of 5 event-timed calls) and the peak memory
+    it adds, in GB."""
+    grid = eval_anchor_grid(cfg)
+    with torch.inference_mode():
+        feats, logits, deltas = model.forward_rpn(images[:1])
+        props, _, valid = rcnn.rpn_proposals(
+            logits, deltas, torch.as_tensor(grid.anchors, device="cuda"),
+            grid.level_splits, sizes[:1],
+            pre_nms_topk=cfg.MODEL.RPN.PRE_NMS_TOPK_TEST,
+            post_nms_topk=cfg.MODEL.RPN.POST_NMS_TOPK_TEST)
+
+        def pool():
+            return multilevel_roi_align(
+                feats[:4], model.ROI_STRIDES, props[0], valid[0],
+                torch.zeros(props.shape[1], dtype=torch.long,
+                            device="cuda"),
+                output_size=7)
+
+        ms = time_ms(pool, 1, warmup=1, rounds=5)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pool()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return ms, peak, int(props.shape[1])
+
+
+def phase_rcnn_meta_test(work: str):
+    """Phase 11; returns the readings of its two main-path windows (the
+    meta-test's and the 337-row bank's: launches, and launches by route) by
+    path, and the ``rcnn`` line's meta-test part."""
+    lvis_root = os.path.join(work, "lvis")
+    make_synthetic_lvis(lvis_root, os.path.join(work, "lvis_images"),
+                        **RCNN_DATA)
+    register_all_lvis(lvis_root, os.path.join(work, "lvis_images"))
+    cfg = rcnn_meta_test_cfg(os.path.join(work, "rcnn_out"))
+    name = cfg.DATASETS.TEST[0]
+    runner = MetaFasterRCNNRunner()
+    model = runner.build_model(cfg)
+    t0 = time.perf_counter()
+    runner.do_test(cfg, model)  # warm-up: cuDNN plans
+    log(f"[rcnn] warm-up do_test: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(cfg.OUTPUT_DIR)
+
+    torch.cuda.reset_peak_memory_stats()
+    with NMSRecorder() as rec:
+        # ---- the main path: counts are read around this block alone
+        reset_counts()
+        t0 = time.perf_counter()
+        results = runner.do_test(cfg, model)
+        wall = time.perf_counter() - t0
+        counts = read_counts("rcnn_meta_test")
+        # ---- end of the main path
+    launches, routes = counts
+    peak = peak_memory_gb()
+    driver = runner.drivers[name]
+    st, meta = driver.stats, driver.dataset_dict["metadata"]
+    n_calls, shapes = rec.check("two-stage meta-test")
+    batches = int(st["query_batches"])
+    if launches != 2 * batches or n_calls != launches:
+        raise AssertionError(f"expected 2 NMS launches per query batch "
+                             f"({batches} batches), got {launches} "
+                             f"({n_calls} calls)")
+    check_lvis_ap(name, results[name]["bbox"], meta["thing_classes"], True)
+    log(f"[rcnn] {name}: {int(st['classes'])} classes, "
+        f"{int(st['query_images'])} query images in {batches} batches; "
+        f"{n_calls} NMS calls (B, K: {sorted(set(shapes))}) equal the twin, "
+        f"routes {routes}; AP {results[name]['bbox']['AP']:.4f}; do_test "
+        f"{wall:.2f} s, peak {peak:.2f} GB")
+    log(f"[rcnn] {name} times (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in st.items() if k.endswith("_s")))
+
+    # the .npz codes (raw, 1024 wide) reload into the normalized bank
+    code_dir = os.path.join(cfg.OUTPUT_DIR, "class_codes", name)
+    ids = {c: i for i, c in enumerate(meta["thing_classes"])}
+    codes = {ids[f[:-4]]: {"code": dict(np.load(os.path.join(code_dir, f)))}
+             for f in os.listdir(code_dir)}
+    if any(c["code"]["cls_conv"].shape != (1, 1024) for c in codes.values()):
+        raise AssertionError("class codes are not 1024 wide")
+    reloaded = meta_eval.normalize_class_codes(model, codes)
+    for key in ("cls_conv", "cls_bias"):
+        np.testing.assert_allclose(reloaded[key], driver.bank[key], rtol=0,
+                                   atol=1e-6, err_msg=key)
+    log(f"[rcnn] {len(codes)} .npz codes reload and normalize to the "
+        "driver's bank (1e-6)")
+
+    # one query batch against a 337-row bank: K = 337,000 on real decode
+    gen = torch.Generator().manual_seed(0)
+    n_extra = 337 - driver.bank["cls_conv"].shape[0]
+    with torch.inference_mode():
+        drawn = model.normalize_code({
+            "cls_conv": torch.randn((n_extra, 1024), generator=gen).cuda(),
+            "cls_bias": torch.randn((n_extra,), generator=gen).cuda()})
+    bank = {k: np.concatenate([driver.bank[k], drawn[k].cpu().numpy()])
+            for k in ("cls_conv", "cls_bias")}
+    images, sizes = query_batch(cfg, driver.dataset_dict)
+    infer = runner.make_infer(cfg, model, bank, eval_anchor_grid(cfg))
+    infer(images, sizes)  # warm-up
+    with NMSRecorder() as rec:
+        # ---- the main path: counts are read around this block alone
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det = infer(images, sizes)
+        torch.cuda.synchronize()
+        bank_ms = (time.perf_counter() - t0) * 1e3
+        bank_counts = read_counts("rcnn_bank_337")
+        # ---- end of the main path
+        roi_args = rec.calls[-1][0]
+    bank_routes = bank_counts[1]
+    n_calls, shapes = rec.check("337-row bank")
+    if (shapes[-1] != (images.shape[0], 337_000)
+            or bank_routes.get("radix") != 1 or not bool(det.valid.any())):
+        raise AssertionError(f"337-row bank: NMS shapes {shapes}, routes "
+                             f"{bank_routes}")
+    boxes, scores, classes, valid = roi_args[:4]
+    _, *planes = nms_planes(boxes, scores, classes, valid)
+    roi_ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, 0.5, 300), 10,
+                     graph=True)
+    log(f"[rcnn] 337-row bank: one batch of {images.shape[0]} in "
+        f"{bank_ms:.1f} ms; ROI NMS (B={images.shape[0]}, K=337000, "
+        f"{int(valid.sum())} alive) equal to the twin, radix route, kernel "
+        f"{roi_ms:.4f} ms; {int(det.valid.sum())} detections")
+    ra_ms, ra_gb, n_props = roi_align_cost(model, images, sizes, cfg)
+    log(f"[rcnn] ROIAlign of {n_props} proposals at P2-P5: {ra_ms:.2f} ms, "
+        f"+{ra_gb:.2f} GB peak")
+    line = {"rcnn": "meta_test", "config": "Meta-RCNN-FPN-finetune.yaml",
+        "eval_batch": cfg.TPU.EVAL_BATCH,
+        "query_img_per_s": st["query_images"] / st["query_s"],
+        "registration_ms_per_class": st["codegen_s"] / st["classes"] * 1e3,
+        "stats": st, "do_test_s": wall, "peak_memory_gb": peak,
+        "nms_launches_per_query_batch": launches / batches,
+        "nms_routes": routes,
+        "bank_337": {"batch_ms": bank_ms, "roi_nms_ms": roi_ms,
+                     "nms_routes": bank_routes},
+        "roi_align_ms_per_image": ra_ms,
+        "roi_align_peak_gb_per_image": ra_gb}
+    return {"rcnn_meta_test": counts, "rcnn_bank_337": bank_counts}, line
+
+
+def phase_rcnn_plain(work: str):
+    """Phase 12: the 1103-class base classifier on 8 images."""
+    cfg = rcnn_meta_test_cfg(
+        os.path.join(work, "rcnn_plain_out"),
+        config="sylph://LVISv1-Detection/Meta-RCNN/"
+               "Meta-RCNN-FPN-pretrain.yaml")
+    name = "lvis_pretrain_val_basev1"
+    cfg.DATASETS.TEST = [name]
+    full = DatasetCatalog.get(name)
+    DatasetCatalog.register(name, lambda: dict(
+        full, records=full["records"][:8]))
+    runner = MetaFasterRCNNRunner()
+    model = runner.build_model(cfg)
+    runner.do_test(cfg, model)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with NMSRecorder() as rec:
+        # ---- the main path: counts are read around this block alone
+        reset_counts()
+        t0 = time.perf_counter()
+        results = runner.do_test(cfg, model)
+        wall = time.perf_counter() - t0
+        counts = read_counts("rcnn_plain")
+        # ---- end of the main path
+        roi_args = rec.calls[-1][0]
+    launches, routes = counts
+    peak = peak_memory_gb()
+    n_calls, shapes = rec.check("plain two-stage evaluation")
+    if (n_calls != launches or (8, 1_103_000) not in shapes
+            or not routes.get("radix")):
+        raise AssertionError(f"plain evaluation: NMS shapes {shapes}, routes "
+                             f"{routes}")
+    boxes, scores, classes, valid = roi_args[:4]
+    _, *planes = nms_planes(boxes, scores, classes, valid)
+    roi_ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, 0.5, 300), 5,
+                     graph=True)
+    log(f"[rcnn-plain] ROI NMS input (B=8, K=1103000, {int(valid.sum())} "
+        f"alive): kernel {roi_ms:.4f} ms")
+    check_lvis_ap(name, results[name]["bbox"],
+                  full["metadata"]["thing_classes"], False)
+    log(f"[rcnn-plain] {name}, 8 images, 1103 classes: {n_calls} NMS calls "
+        f"(B, K: {sorted(set(shapes))}) equal the twin, routes {routes}; "
+        f"do_test {wall:.2f} s, peak {peak:.2f} GB, AP "
+        f"{results[name]['bbox']['AP']:.4f}")
+    return counts, {"config": "Meta-RCNN-FPN-pretrain.yaml", "images": 8,
+                    "do_test_s": wall, "img_per_s": 8 / wall,
+                    "peak_memory_gb": peak, "nms_launches": launches,
+                    "nms_routes": routes, "roi_nms_ms": roi_ms}
+
+
+def _sorted_dets(det, i):
+    """Image i's valid detections in (class, score descending) order."""
+    v = det.valid[i]
+    cls, sc, bx = det.classes[i][v], det.scores[i][v], det.boxes[i][v]
+    order = np.lexsort((-sc, cls))
+    return cls[order], sc[order], bx[order]
+
+
+def phase_rcnn_card_vs_cpu(devices=("cuda", "cpu")) -> None:
+    """Phase 13."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(13)
+    images = rng.randint(0, 256, (2, 256, 256, 3)).astype(np.float32)
+    sizes = np.array([[256, 256], [200, 240]], np.int32)
+    raw = {"cls_conv": rng.normal(0, 1, (3, 1024)).astype(np.float32),
+           "cls_bias": rng.normal(0, 1, (3,)).astype(np.float32)}
+    for mode in ("conditional", "cosine"):
+        cfg = MetaFasterRCNNRunner.get_default_cfg()
+        cfg.merge_from_file(
+            "sylph://LVISv1-Detection/Meta-RCNN/Meta-RCNN-FPN-"
+            + ("finetune" if mode == "conditional" else "pretrain") + ".yaml")
+        cfg.MODEL.FCOS.L2_NORM_CLS_WEIGHT = mode == "cosine"
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+        grid = rcnn.build_anchor_grid((256, 256))
+        kw = dict(rpn_post_nms=1000, score_thresh=1e-4, nms_thresh=0.5,
+                  max_dets=100, rpn_pre_nms=1000)
+        outs = []
+        for dev in devices:
+            model = build_rcnn_model_from_cfg(cfg, device=dev)
+            args = (torch.as_tensor(images, device=dev),)
+            rest = (torch.as_tensor(grid.anchors, device=dev),
+                    grid.level_splits, torch.as_tensor(sizes, device=dev))
+            with torch.inference_mode():
+                if mode == "conditional":
+                    bank = model.normalize_code(
+                        {k: torch.as_tensor(v, device=dev)
+                         for k, v in raw.items()})
+                    det = model.forward_instances(*args, bank, *rest, **kw)
+                    bank = bank["cls_conv"].cpu().numpy()
+                else:
+                    det = model.forward_base_instances(*args, *rest, **kw)
+                    bank = None
+            outs.append((bank, det.numpy()))
+        (bg, dg), (bc, dc) = outs
+        if bg is not None:
+            np.testing.assert_allclose(bg, bc, rtol=0, atol=1e-5)
+        n = []
+        for i in range(len(images)):
+            (cg, sg, xg), (cc, sc, xc) = _sorted_dets(dg, i), _sorted_dets(
+                dc, i)
+            if len(cg) != len(cc) or not len(cc):
+                raise AssertionError(f"{mode} image {i}: {len(cg)} detections "
+                                     f"on cuda, {len(cc)} on cpu")
+            np.testing.assert_array_equal(cg, cc)
+            np.testing.assert_allclose(sg, sc, rtol=0, atol=1e-3)
+            np.testing.assert_allclose(xg, xc, rtol=0, atol=0.05)
+            n.append(len(cc))
+        log(f"[rcnn-card-vs-cpu] {mode}: R-50 fp32 256x256, detections "
+            f"{n} agree (boxes 0.05, scores 1e-3, classes equal)")
 
 
 def main() -> int:
@@ -904,34 +1370,52 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     max_err = phase_nms_against_twin()
-    serve_launches, timing = phase_serving()
+    serve_counts, timing = phase_serving()
     phase_card_vs_cpu()
     # the meta-test's and training's files live in a scratch directory
     work = tempfile.mkdtemp(prefix="sylph_meta_test_")
     try:
-        meta_launches, meta_timing = phase_meta_test(work)
+        meta_counts, meta_timing = phase_meta_test(work)
         phase_train_card_vs_cpu()
-        train_launches, episodic_line = phase_train_episodic(work, card)
-        pre_launches, pretrain_line = phase_train_pretrain(card)
+        train_counts, episodic_line = phase_train_episodic(work, card)
+        pre_counts, pretrain_line = phase_train_pretrain(card)
+        shapes = phase_nms_two_stage()
+        rcnn_counts, rcnn_line = phase_rcnn_meta_test(work)
+        plain_counts, plain_part = phase_rcnn_plain(work)
+        phase_rcnn_card_vs_cpu()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    by_path = {"serve": serve_launches, "meta_test": meta_launches}
+    # every main-path window's reading: (launches, launches by route)
+    counts = {"serve": serve_counts, "meta_test": meta_counts, **rcnn_counts,
+              "rcnn_plain": plain_counts}
+    by_path = {path: n for path, (n, _) in counts.items()}
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the NMS kernel: "
                              f"{by_path}")
-    if train_launches or pre_launches:
+    train_launches = train_counts[0] + pre_counts[0]
+    if train_launches:
         raise AssertionError("training launched the NMS kernel")
+    by_route = {r: sum(routes[r] for _, routes in counts.values())
+                for r in nms_kernel.LAUNCHES_BY_ROUTE}
+    if sum(by_route.values()) != sum(by_path.values()):
+        raise AssertionError(f"launches by route {by_route} do not add up to "
+                             f"those by path {by_path}")
     kernels = [dict(name="nms", route="cuda",
                     source="sylph_tpu_torch/csrc/nms.cu",
                     replaces="sylph_tpu/ops/nms_pallas.py:96",
                     launches=sum(by_path.values()),
                     launches_by_path=by_path,
-                    launches_on_train_paths=train_launches + pre_launches,
+                    launches_by_route=by_route,
+                    launches_on_train_paths=train_launches,
                     max_abs_err=max_err,
-                    library_ms=None, **timing, **meta_timing)]
+                    library_ms=None, **timing, **meta_timing,
+                    shapes=shapes)]
+    rcnn_line["plain"] = plain_part
+    rcnn_line["card"] = card
     print(json.dumps(episodic_line), flush=True)
     print(json.dumps(pretrain_line), flush=True)
+    print(json.dumps(rcnn_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

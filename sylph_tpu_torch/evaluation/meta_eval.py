@@ -279,10 +279,32 @@ def make_fcos_infer(model, bank: Dict[str, np.ndarray], grid,
     return infer
 
 
-def make_rcnn_infer(*args, **kwargs):
-    """Two-stage phase-2 inference (JAX ``make_rcnn_infer``): the two-stage
-    detector is not ported yet."""
-    raise NotImplementedError("two-stage (RCNN) inference is not ported yet")
+def make_rcnn_infer(model, bank: Dict[str, np.ndarray], anchor_grid, *,
+                    rpn_post_nms: int = 1000, score_thresh: float = 0.05,
+                    nms_thresh: float = 0.5, max_dets: int = 100,
+                    class_valid: Optional[np.ndarray] = None,
+                    rpn_pre_nms: int = 1000,
+                    device: Union[str, torch.device] = "cuda") -> Callable:
+    """Two-stage phase-2 inference: ``infer(images, image_sizes)`` runs
+    ``FewShotRCNN.forward_instances`` against ``bank`` with the anchors of
+    ``anchor_grid`` (reference FewShotDetector "meta_learn_test_instance",
+    few_shot_rcnn.py:230-306)."""
+    dev = resolve_device(device)
+    anchors = torch.as_tensor(anchor_grid.anchors, device=dev)
+    splits = tuple(anchor_grid.level_splits)
+    bank_t = {k: torch.as_tensor(v, device=dev) for k, v in bank.items()}
+    cv = (torch.as_tensor(class_valid, device=dev)
+          if class_valid is not None else
+          torch.ones((bank["cls_conv"].shape[0],), dtype=torch.bool,
+                     device=dev))
+
+    @torch.inference_mode()
+    def infer(images: torch.Tensor, image_sizes: torch.Tensor):
+        return model.forward_instances(
+            images, bank_t, anchors, splits, image_sizes, rpn_post_nms,
+            score_thresh, nms_thresh, max_dets, cv, rpn_pre_nms)
+
+    return infer
 
 
 def run_query_inference(infer: Callable, query_loader,

@@ -10,12 +10,13 @@ Dispatch follows the tensors' device: CUDA tensors go to the hand-written
 kernel (``ops/nms_kernel.py``, ``csrc/nms.cu``), CPU tensors to the plain
 PyTorch twin ``nms_select_reference``. ``impl="reference"`` names the twin
 explicitly, for comparisons on the card. ``nms_select_ranked_reference``
-renders the kernel's own algorithm (rank once, scan in chunks) in plain
-PyTorch for the CPU tests; no path runs it.
+renders the kernel's own algorithm (rank once, by either of its routes, then
+scan in chunks) in plain PyTorch for the CPU tests; no path runs it.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -24,6 +25,7 @@ from . import nms_kernel
 
 NEG_INF = -1e10
 CHUNK = 64  # candidates per chunk of the kernel's ranked scan
+ROUTES = ("count", "radix")
 
 
 def nms_select_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -79,9 +81,60 @@ def _iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(a[..., 4] + b[..., 4] - inter, min=1e-9)
 
 
+def order_keys(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The kernel's 32-bit ``order_key`` per candidate, as int64: the score's
+    bits made monotone (a larger key is a higher score, -0.0 taken as +0.0),
+    0 for a dead candidate."""
+    s = scores.float() + 0.0                                # -0.0 -> +0.0
+    u = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(u >= 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+    return torch.where(valid & (s > NEG_INF / 2), key, 0)
+
+
+def rank_count_reference(keys: torch.Tensor) -> torch.Tensor:
+    """The counting route's ranked list for one image's (K,) keys: the
+    alive candidates in (key descending, index ascending) order."""
+    n_alive = int((keys != 0).sum())
+    return torch.sort(-keys, stable=True).indices[:n_alive]
+
+
+def rank_radix_reference(keys: torch.Tensor, tile: int = 2048
+                         ) -> torch.Tensor:
+    """The radix route's ranked list for one image's (K,) keys, pass by
+    pass as the kernels build it (csrc/nms.cu, ``radix_*_kernel``): pass 0
+    drops the dead candidates, keeping index order, and complements the
+    keys; each of four passes counts 8-bit digits per tile of ``tile``
+    members, scans the counts in (digit, tile) order, and moves each member
+    to its tile's first slot for its digit plus the members of that digit
+    before it in the tile."""
+    vals = torch.nonzero(keys).flatten()            # compaction, index order
+    ck = 0xFFFFFFFF - keys[vals]                    # ascending = descending
+    n = vals.numel()
+    tiles = -(-n // tile)
+    for shift in (0, 8, 16, 24) if n else ():
+        digit = (ck >> shift) & 0xFF
+        hist = torch.zeros((256, tiles), dtype=torch.int64)
+        within = torch.empty(n, dtype=torch.int64)
+        for t in range(tiles):
+            d = digit[t * tile:(t + 1) * tile]
+            onehot = torch.nn.functional.one_hot(d, 256)
+            hist[:, t] = onehot.sum(0)
+            within[t * tile:(t + 1) * tile] = (
+                onehot.cumsum(0).gather(1, d[:, None])[:, 0] - 1)
+        first = (torch.cumsum(hist.flatten(), 0) - hist.flatten()).view(
+            256, tiles)
+        tile_of = torch.arange(n) // tile
+        pos = first[digit, tile_of] + within
+        out_k, out_v = torch.empty_like(ck), torch.empty_like(vals)
+        out_k[pos], out_v[pos] = ck, vals
+        ck, vals = out_k, out_v
+    return vals
+
+
 def nms_select_ranked_reference(boxes: torch.Tensor, scores: torch.Tensor,
                                 valid: torch.Tensor, iou_threshold: float,
-                                max_outputs: int
+                                max_outputs: int, route: str = "count",
+                                tile: int = 2048
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch rendering of the kernel's algorithm (csrc/nms.cu);
     same arguments and results as ``nms_select_reference``.
@@ -90,7 +143,10 @@ def nms_select_ranked_reference(boxes: torch.Tensor, scores: torch.Tensor,
     (score descending, index ascending), over the alive candidates that
     keeps a candidate when no kept one has IoU > threshold with it. So:
 
-      1. rank the alive candidates by that order (-0.0 counts as +0.0);
+      1. rank the alive candidates by that order (-0.0 counts as +0.0), by
+         ``route``: ``"count"`` (``rank_count_reference``) or ``"radix"``
+         (``rank_radix_reference`` over tiles of ``tile``), which give
+         the same list;
       2. take the ranked list in chunks of ``CHUNK``; per chunk, mark the
          members that some earlier kept candidate suppresses, and build
          the intra-chunk bitmask ``m[i]`` = the later members that member
@@ -101,16 +157,20 @@ def nms_select_ranked_reference(boxes: torch.Tensor, scores: torch.Tensor,
 
     It runs on no path; the CPU tests hold it against the references.
     """
+    if route not in ROUTES:
+        raise ValueError(f"unknown ranking route {route!r}")
+    rank = (rank_count_reference if route == "count"
+            else partial(rank_radix_reference, tile=tile))
     b, k = scores.shape
-    s = torch.where(valid, scores.float() + 0.0, NEG_INF)  # -0.0 -> +0.0
-    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    keys = order_keys(scores.cpu(), valid.cpu())
+    x1, y1, x2, y2 = boxes.float().cpu().unbind(-1)
     area = (torch.clamp(x2 - x1, min=0.0) * torch.clamp(y2 - y1, min=0.0))
     rows = torch.stack([x1, y1, x2, y2, area], dim=-1)       # (B, K, 5)
     idx = torch.zeros((b, max_outputs), dtype=torch.int32)
     ok = torch.zeros((b, max_outputs), dtype=torch.bool)
     for r in range(b):
-        n_alive = int((s[r] > NEG_INF / 2).sum())
-        order = torch.sort(-s[r], stable=True).indices[:n_alive]
+        order = rank(keys[r])
+        n_alive = order.numel()
         ranked = rows[r, order]
         kept = []                       # ranks of the kept candidates
         for c0 in range(0, n_alive, CHUNK):

@@ -8,13 +8,20 @@ Nothing here touches ``nvcc`` or the loader at import time, so CPU-only
 installs import the module freely.
 
 ``nms_cuda`` takes CUDA tensors only and raises on anything else, on a
-failed build and on a failed launch: there is no fallback. One call launches
-two kernels on the current stream, ``rank_kernel`` (orders the alive
-candidates once, over a grid of blocks) and then ``scan_kernel`` (one block
-per image walks the ranked list in chunks of 64); the scratch between them
-is allocated here with ``torch.empty``. ``LAUNCHES`` counts the calls (one
-per image batch, each launching both kernels), so a run can show that its
-path went through the kernel.
+failed build and on a failed launch: there is no fallback. One call ranks
+the alive candidates once and then launches ``scan_kernel`` (one block per
+image walks the ranked list in chunks of 64), on the current stream; the
+scratch between them is allocated here with ``torch.empty``. The ranking
+route is chosen by K alone (``select_route``):
+
+  * ``"count"`` (K <= ``COUNT_ROUTE_MAX_K``): ``rank_kernel`` orders by
+    counting, with every key in shared memory;
+  * ``"radix"`` (larger K, the two-stage ROI stage): a stable radix sort of
+    the order keys from global memory, four passes of three kernels.
+
+``LAUNCHES`` counts the calls (one per image batch) and ``LAUNCHES_BY_ROUTE``
+the same calls by route, so a run can show that its path went through the
+kernel and which route its shapes took.
 
 ``nms_cuda_greedy`` runs the kernel's first design (``csrc/nms_greedy.cu``,
 one block-wide argmax step per pick) on the same arguments. It is the
@@ -43,22 +50,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
 # The card's per-block shared-memory ceiling (227 KB) less room for the
 # kernels' static shared arrays (under 4 KB). rank_kernel holds one 4-byte
-# order key per candidate (K <= 57,088); scan_kernel holds the kept boxes,
-# 20 bytes for each of min(M, K).
+# order key per candidate (K <= 57,088), past which the radix route ranks;
+# scan_kernel holds the kept boxes, 20 bytes for each of min(M, K).
 MAX_DYNAMIC_SMEM = 232448 - 4096
 SMEM_BYTES_PER_CANDIDATE = 4
 SMEM_BYTES_PER_PICK = 20
+COUNT_ROUTE_MAX_K = MAX_DYNAMIC_SMEM // SMEM_BYTES_PER_CANDIDATE
 GREEDY_SMEM_BYTES_PER_CANDIDATE = 24  # the first design's six planes
+SORT_TILE = 2048    # candidates per block of a radix pass (kSortTile)
+RADIX_DIGITS = 256  # 8-bit digits (kDigits)
+MAX_K = 2 ** 31 - 1 - SORT_TILE  # int32 element indices within an image
+MAX_B = 65535                    # the grid's y extent
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# symbol, argument types: 6 input planes, B, K, M, threshold, then outputs,
-# scratch and the stream
-_BINDINGS = {"nms": ("sylph_nms_launch", [_P] * 6 + [_I] * 3 + [_F]
-                     + [_P] * 6),
-             "nms_greedy": ("sylph_nms_greedy_launch",
-                            [_P] * 6 + [_I] * 3 + [_F] + [_P] * 3)}
+# per source, per entry: symbol, argument types (6 input planes, B, K, M,
+# threshold, then outputs, scratch and the stream)
+_BINDINGS = {"nms": {"count": ("sylph_nms_launch",
+                               [_P] * 6 + [_I] * 3 + [_F] + [_P] * 6),
+                     "radix": ("sylph_nms_radix_launch",
+                               [_P] * 6 + [_I] * 3 + [_F] + [_P] * 11)},
+             "nms_greedy": {"greedy": ("sylph_nms_greedy_launch",
+                                       [_P] * 6 + [_I] * 3 + [_F]
+                                       + [_P] * 3)}}
 
 LAUNCHES = 0
+LAUNCHES_BY_ROUTE = {"count": 0, "radix": 0}
 BUILD_LOG = {}  # source name -> nvcc's output
 _fns = {}
 
@@ -81,8 +97,8 @@ def _library(name: str) -> Path:
 
 def build(names: Sequence[str] = ("nms",)):
     """Compile what is missing (once per source hash; one ``nvcc`` per
-    source, all started together), load, and return the launch function
-    of the first name."""
+    source, all started together), load, and return the launch functions
+    of the first name by entry."""
     if all(name in _fns for name in names):
         return _fns[names[0]]
     procs = {}
@@ -104,11 +120,13 @@ def build(names: Sequence[str] = ("nms",)):
         os.replace(tmp, out)
     for name in names:
         if name not in _fns:
-            symbol, argtypes = _BINDINGS[name]
-            fn = getattr(ctypes.CDLL(str(_library(name))), symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
+            lib = ctypes.CDLL(str(_library(name)))
+            _fns[name] = {}
+            for entry, (symbol, argtypes) in _BINDINGS[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[name][entry] = fn
     return _fns[names[0]]
 
 
@@ -125,29 +143,43 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"nms_cuda: {name} must be contiguous")
 
 
-def _check_inputs(x1, y1, x2, y2, scores, valid, max_outputs: int,
-                  smem) -> Tuple[int, int]:
-    """Raise on what the kernels do not take; ``smem(k)`` is the dynamic
-    shared memory a block needs. Returns (B, K)."""
+def _planes_shape(x1: torch.Tensor) -> Tuple[int, int]:
     if x1.dim() != 2:
         raise ValueError(f"nms_cuda: planes must be (B, K), got "
                          f"{tuple(x1.shape)}")
+    return tuple(x1.shape)
+
+
+def _check_inputs(x1, y1, x2, y2, scores, valid) -> None:
+    """Raise on tensors the kernels do not take."""
     b, k = x1.shape
-    if k < 1:
-        raise ValueError("nms_cuda: needs at least one candidate")
-    if max_outputs < 0:
-        raise ValueError(f"nms_cuda: max_outputs {max_outputs} < 0")
-    if smem(k) > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"nms_cuda: K={k}, M={max_outputs} needs {smem(k)} "
-                         f"B of shared memory, more than the "
-                         f"{MAX_DYNAMIC_SMEM} B a block has")
     for name, t in (("x1", x1), ("y1", y1), ("x2", x2), ("y2", y2),
                     ("scores", scores)):
         _check(name, t, torch.float32, (b, k))
     _check("valid", valid, torch.int32, (b, k))
     if any(t.device != x1.device for t in (y1, x2, y2, scores, valid)):
         raise ValueError("nms_cuda: all inputs must be on one device")
-    return b, k
+
+
+def select_route(b: int, k: int, max_outputs: int) -> str:
+    """The ranking route of a (B, K, M) call, by K alone: ``"count"`` up to
+    ``COUNT_ROUTE_MAX_K``, ``"radix"`` past it. Raises on sizes the kernels
+    do not take: the limits are the scan's kept list (20 bytes for each of
+    min(M, K) in shared memory), int32 indices within an image and the
+    grid's B."""
+    if k < 1:
+        raise ValueError("nms_cuda: needs at least one candidate")
+    if max_outputs < 0:
+        raise ValueError(f"nms_cuda: max_outputs {max_outputs} < 0")
+    if k > MAX_K or b > MAX_B:
+        raise ValueError(f"nms_cuda: B={b}, K={k} past the kernels' limits "
+                         f"(B <= {MAX_B}, K <= {MAX_K})")
+    kept = SMEM_BYTES_PER_PICK * min(max_outputs, k)
+    if kept > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"nms_cuda: M={max_outputs} needs {kept} B of shared "
+                         f"memory for the kept boxes, more than the "
+                         f"{MAX_DYNAMIC_SMEM} B a block has")
+    return "count" if k <= COUNT_ROUTE_MAX_K else "radix"
 
 
 def _launch(fn, planes, b: int, max_outputs: int, iou_threshold: float,
@@ -170,26 +202,37 @@ def nms_cuda(x1: torch.Tensor, y1: torch.Tensor, x2: torch.Tensor,
              y2: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
              iou_threshold: float, max_outputs: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy NMS on (B, K) class-offset box planes: rank, then a chunked
-    scan with one block per image.
+    """Greedy NMS on (B, K) class-offset box planes: rank (by the route K
+    selects), then a chunked scan with one block per image.
 
     x1, y1, x2, y2, scores: (B, K) float32; valid: (B, K) int32 (0 / 1).
     Returns (idx, ok), each (B, max_outputs) int32: the picks in order,
     index 0 and ok 0 after the last one.
     """
     global LAUNCHES
-    b, k = _check_inputs(
-        x1, y1, x2, y2, scores, valid, max_outputs,
-        lambda k: max(SMEM_BYTES_PER_CANDIDATE * k,
-                      SMEM_BYTES_PER_PICK * min(max_outputs, k)))
-    fn = build()
-    # scratch, in one allocation: the ranked boxes (B, K) x (x1, y1, x2, y2)
-    # float32, their indices (B, K) and the alive counts (B,), int32
-    scratch = torch.empty(b * k * 5 + b, dtype=torch.int32, device=x1.device)
+    b, k = _planes_shape(x1)
+    route = select_route(b, k, max_outputs)
+    _check_inputs(x1, y1, x2, y2, scores, valid)
+    fn = build()[route]
+    # scratch, in one int32 allocation: the ranked boxes (B, K) x (x1, y1,
+    # x2, y2) float32, their indices (B, K) and the alive counts (B,); the
+    # radix route adds two key and two value lists (B, K) and the counts
+    # (B, 256, tiles)
+    extra = 0
+    if route == "radix":
+        tiles = -(-k // SORT_TILE)
+        extra = 4 * b * k + b * RADIX_DIGITS * tiles
+    scratch = torch.empty(b * k * 5 + b + extra, dtype=torch.int32,
+                          device=x1.device)
     ptr = scratch.data_ptr()
+    ptrs = [ptr, ptr + 16 * b * k, ptr + 20 * b * k]
+    if route == "radix":
+        lists = ptr + 4 * (5 * b * k + b)
+        ptrs += [lists + 4 * b * k * i for i in range(5)]
     out = _launch(fn, (x1, y1, x2, y2, scores, valid), b, max_outputs,
-                  iou_threshold, ptr, ptr + 16 * b * k, ptr + 20 * b * k)
+                  iou_threshold, *ptrs)
     LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[route] += 1
     return out
 
 
@@ -199,8 +242,14 @@ def nms_cuda_greedy(x1: torch.Tensor, y1: torch.Tensor, x2: torch.Tensor,
                     max_outputs: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``nms_cuda``'s function by the first design (one block per image,
     one argmax step per pick); the yardstick, not on any path."""
-    b, _ = _check_inputs(x1, y1, x2, y2, scores, valid, max_outputs,
-                         lambda k: GREEDY_SMEM_BYTES_PER_CANDIDATE * k)
-    fn = build(("nms_greedy",))
+    b, k = _planes_shape(x1)
+    select_route(b, k, max_outputs)
+    smem = GREEDY_SMEM_BYTES_PER_CANDIDATE * k
+    if smem > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"nms_cuda_greedy: K={k} needs {smem} B of shared "
+                         f"memory, more than the {MAX_DYNAMIC_SMEM} B a block "
+                         "has")
+    _check_inputs(x1, y1, x2, y2, scores, valid)
+    fn = build(("nms_greedy",))["greedy"]
     return _launch(fn, (x1, y1, x2, y2, scores, valid), b, max_outputs,
                    iou_threshold)

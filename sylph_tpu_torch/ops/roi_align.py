@@ -41,7 +41,8 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor,
       max_grid: static lattice size per bin edge for the adaptive mode.
 
     Returns:
-      (N, C, P, P) pooled features in the features' dtype.
+      (N, C, P, P) pooled features in float32 whatever the features' dtype:
+      the samples are weighted by float32 factors, as in the JAX op.
     """
     h, w = features.shape[-2:]
     n = boxes.shape[0]
@@ -119,7 +120,7 @@ def _bilinear_pool(features, batch_idx, ys, xs, valid_y, valid_x, count,
                & valid_x[:, None, None, None, :, None])
     val = torch.where(lattice, val, 0.0)
     out = val.sum(dim=(2, 4)) / count[:, None, None, None]
-    return out.reshape(n, p * p, c).to(features.dtype)
+    return out.reshape(n, p * p, c)
 
 
 def multilevel_roi_align(features: Sequence[torch.Tensor],
@@ -136,7 +137,7 @@ def multilevel_roi_align(features: Sequence[torch.Tensor],
       boxes: (N, 4) XYXY image coords; valid: (N,) bool; batch_idx: (N,).
 
     Returns:
-      (N, C, P, P) pooled features (zeros for invalid boxes).
+      (N, C, P, P) float32 pooled features (zeros for invalid boxes).
     """
     num_levels = len(features)
     min_level = int(math.log2(strides[0]))

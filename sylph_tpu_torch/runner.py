@@ -3,7 +3,8 @@ sylph_tpu/runner/meta_fcos_runner.py): ``build_model_from_cfg``,
 ``_codegen_kwargs``, ``_decode_cfg``, ``_freeze_cfg``, ``_loss_cfg``,
 ``_mapper``, ``MetaFCOSRunner`` (``get_default_cfg``, ``build_model`` with
 MODEL.WEIGHTS loading, ``do_train`` in both modes, ``get_evaluator``,
-``do_test``) and ``create_runner``.
+``do_test``) and ``create_runner`` (which also builds the two-stage runners
+of ``meta_faster_rcnn_runner.py``).
 
 The repo ships no checkpoint, so weights start from an explicit
 ``torch.Generator`` seed in one of two ways:
@@ -39,6 +40,7 @@ from .evaluation.evaluators import (AREvaluator, COCOMetaEvaluator,
 from .evaluation.postprocess import detections_to_coco_results
 from .models.layers import Conv2d, GroupNorm, Scale
 from .models.meta_arch import MetaOneStageDetector
+from .models.rcnn import ROIBoxHead
 from .models.resnet import FrozenBatchNorm
 from .ops.decode import DecodeCfg, decode_proposals
 from .ops.fcos_losses import FCOSLossCfg
@@ -98,9 +100,22 @@ def _decode_cfg(cfg, train: bool = False) -> DecodeCfg:
         owd=cfg.MODEL.PROPOSAL_GENERATOR.OWD)
 
 
+# Random frozen-BN statistics leave the R-50 FPN maps of 0-255 pixels at a
+# standard deviation of ~80-230 (P6-P2, measured on the CPU at 128x128). The
+# two-stage heads have no normalization, so the layers that read those maps
+# are scaled down to give O(1) objectness and class logits, and the box
+# regressions to give deltas of ~0.1: proposals stay near their anchors and
+# the class softmax stays spread, as a run of random weights needs.
+_RANDOM_GAIN = {"rpn_head.conv": 0.01, "rpn_head.anchor_deltas": 0.1,
+                "box_head.fc1": 0.01, "box_head.bbox_pred": 0.1}
+
+
 @torch.no_grad()
 def init_random_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Fill every parameter and buffer from a CPU ``torch.Generator``.
+    """Fill every parameter and buffer from a CPU ``torch.Generator``:
+    fan-in scaled conv and linear weights (times ``_RANDOM_GAIN`` on the
+    two-stage heads), random frozen-BN statistics, GroupNorm and scales
+    near their identity, the two-stage box head's rows at unit scale.
 
     The draws happen on the CPU and are copied to the model's device, so a
     model built on ``cuda`` and one built on ``cpu`` from the same seed hold
@@ -111,13 +126,17 @@ def init_random_weights(model: nn.Module, seed: int) -> nn.Module:
     def randn(*shape):
         return torch.randn(shape, generator=gen)
 
-    for module in model.modules():
-        if isinstance(module, Conv2d):
+    for name, module in model.named_modules():
+        if isinstance(module, (Conv2d, nn.Linear)):
             fan_in = module.weight[0].numel()
             module.weight.copy_(randn(*module.weight.shape)
+                                * _RANDOM_GAIN.get(name, 1.0)
                                 / math.sqrt(fan_in))
             if module.bias is not None:
                 module.bias.copy_(0.1 * randn(*module.bias.shape))
+        elif isinstance(module, ROIBoxHead):
+            _init_box_head_params(module, randn, 1.0 / math.sqrt(
+                module.fc_dim))
         elif isinstance(module, FrozenBatchNorm):
             c = module.scale.numel()
             gamma = 1.0 + 0.1 * randn(c)
@@ -160,11 +179,18 @@ def init_train_weights(model: nn.Module, seed: int,
     """
     gen = torch.Generator().manual_seed(seed)
     prior = -math.log((1 - prior_prob) / prior_prob)
+
+    def normal(shape, std):
+        return std * torch.randn(shape, generator=gen)
+
     for name, module in model.named_modules():
-        if isinstance(module, Conv2d):
+        if isinstance(module, (Conv2d, nn.Linear)):
             shape = module.weight.shape
-            if name.startswith(("fcos_head.", "code_generator.")):
-                w = 0.01 * torch.randn(shape, generator=gen)
+            std = {"box_head.cls_score": 0.01,
+                   "box_head.bbox_pred": 0.001}.get(name)
+            if std is not None or name.startswith(
+                    ("fcos_head.", "code_generator.", "rpn_head.")):
+                w = normal(shape, 0.01 if std is None else std)
             else:
                 std = math.sqrt(1.0 / module.weight[0].numel()) \
                     / _TRUNC_NORMAL_STD
@@ -175,6 +201,9 @@ def init_train_weights(model: nn.Module, seed: int,
             if module.bias is not None:
                 module.bias.fill_(prior if name == "fcos_head.cls_logits"
                                   else 0.0)
+        elif isinstance(module, ROIBoxHead):
+            _init_box_head_params(module, lambda *shape: normal(shape, 1.0),
+                                  0.01)
         elif isinstance(module, FrozenBatchNorm):
             module.scale.fill_(1.0)
             module.bias.fill_(0.0)
@@ -187,6 +216,19 @@ def init_train_weights(model: nn.Module, seed: int,
     if cg is not None and cg.meta_bias:
         cg.meta_bias_value.fill_(cg.prior)
     return model
+
+
+def _init_box_head_params(head: ROIBoxHead, randn, std: float) -> None:
+    """The two-stage box head's own parameters: ``cosine_weight`` and
+    ``bg_weight`` normal(std), ``bg_bias`` 0, ``cosine_scale_param`` 20."""
+    for name in ("cosine_weight", "bg_weight"):
+        if hasattr(head, name):
+            p = getattr(head, name)
+            p.copy_(std * randn(*p.shape))
+    if hasattr(head, "bg_bias"):
+        head.bg_bias.fill_(0.0)
+    if hasattr(head, "cosine_scale_param"):
+        head.cosine_scale_param.fill_(20.0)
 
 
 def build_model_from_cfg(cfg, device: Union[str, torch.device] = "cuda",
@@ -647,9 +689,16 @@ def _plain_eval_loop(infer, records, mapper, id_map, evaluator,
 
 def create_runner(name: str, device: Union[str, torch.device] = "cuda"
                   ) -> MetaFCOSRunner:
-    """``MetaFCOSRunner`` by name (reference-style dotted names accepted);
-    the other runners of the JAX package are not ported yet and raise."""
+    """A runner by name (reference-style dotted names accepted):
+    ``MetaFCOSRunner``, ``MetaFasterRCNNRunner``, ``TFAFasterRCNNRunner``.
+    The ROIEncoder and TFA one-stage runners are not ported yet and raise."""
+    from .meta_faster_rcnn_runner import (MetaFasterRCNNRunner,
+                                          TFAFasterRCNNRunner)
+
+    table = {"MetaFCOSRunner": MetaFCOSRunner,
+             "MetaFasterRCNNRunner": MetaFasterRCNNRunner,
+             "TFAFasterRCNNRunner": TFAFasterRCNNRunner}
     key = name.split(".")[-1]
-    if key != "MetaFCOSRunner":
+    if key not in table:
         raise NotImplementedError(f"runner {name} is not ported yet")
-    return MetaFCOSRunner(device=device)
+    return table[key](device=device)

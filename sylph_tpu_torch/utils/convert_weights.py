@@ -7,9 +7,13 @@ numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 ``code_generator.tower_conv0``, ...), so the mapping is mechanical:
 
   * conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw);
+  * Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
   * GroupNorm ``scale``/``bias`` -> ``weight``/``bias``;
   * FrozenBN ``scale``/``bias`` -> the buffers of the same names;
-  * scalars (``Scale.scale``, ``meta_bias_value``) -> 0-d tensors.
+  * the two-stage box head's own parameters (``cosine_weight`` (C+1, D),
+    ``bg_weight`` (D,)) keep their names and shapes;
+  * scalars (``Scale.scale``, ``meta_bias_value``, ``bg_bias``,
+    ``cosine_scale_param``) -> 0-d tensors.
 
 ``load_jax_params`` loads the result with ``strict=True``: a key left
 unconsumed on either side raises.
@@ -28,15 +32,21 @@ import torch.nn as nn
 # ``{name}_ln``, and the code post-norm. FrozenBN modules (``bn{i}``,
 # ``stem_bn1``, ``shortcut_bn``) keep ``scale``.
 _GROUP_NORM = re.compile(r"^(gn\d+|.*_gn|.*_ln|post_norm)$")
+# flax self.param leaves that the port keeps as parameters of the same name
+_PLAIN = {"cosine_weight": 2, "bg_weight": 1}
 
 
 def _leaf(module_path, leaf: str, arr: np.ndarray):
     where = "/".join([*module_path, leaf])
     if leaf == "kernel":
-        if arr.ndim != 4:
-            raise ValueError(f"{where}: expected a 4-d conv kernel, got "
-                             f"{arr.shape}")
-        return "weight", np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+        if arr.ndim == 4:
+            return "weight", np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+        if arr.ndim == 2:
+            return "weight", np.ascontiguousarray(arr.T)
+        raise ValueError(f"{where}: expected a 4-d conv or 2-d Dense kernel, "
+                         f"got {arr.shape}")
+    if _PLAIN.get(leaf) == arr.ndim:
+        return leaf, arr
     if leaf == "bias" and arr.ndim == 1:
         return "bias", arr
     if leaf == "scale" and arr.ndim == 1:

@@ -110,15 +110,20 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
     for fn in (nms_kernel.nms_cuda, nms_kernel.nms_cuda_greedy):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn(*planes, valid, 0.5, 4)
-    # one 4-byte order key per candidate: K = 57,088 fits, 57,089 does not
+    # sizes are checked first: K past the counting route's 57,088 goes to
+    # the radix route (so only the device refuses it), a kept list past the
+    # shared memory does not fit at any K
     big = nms_kernel.MAX_DYNAMIC_SMEM // nms_kernel.SMEM_BYTES_PER_CANDIDATE
-    with pytest.raises(ValueError, match=f"K={big + 1}"):
+    assert nms_kernel.select_route(1, big, 300) == "count"
+    assert nms_kernel.select_route(1, big + 1, 300) == "radix"
+    with pytest.raises(ValueError, match="CUDA tensor"):
         nms_kernel.nms_cuda(*[torch.zeros((1, big + 1)) for _ in range(5)],
                             torch.ones((1, big + 1), dtype=torch.int32),
                             0.5, 4)
-    with pytest.raises(ValueError, match="CUDA tensor"):
+    m = nms_kernel.MAX_DYNAMIC_SMEM // nms_kernel.SMEM_BYTES_PER_PICK + 1
+    with pytest.raises(ValueError, match=f"M={m}"):
         nms_kernel.nms_cuda(*[torch.zeros((1, big)) for _ in range(5)],
-                            torch.ones((1, big), dtype=torch.int32), 0.5, 4)
+                            torch.ones((1, big), dtype=torch.int32), 0.5, m)
     # the first design keeps six planes of K: 24 bytes a candidate
     with pytest.raises(ValueError, match="K=10000"):
         nms_kernel.nms_cuda_greedy(

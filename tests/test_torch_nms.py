@@ -1,8 +1,9 @@
-"""The port's two plain NMS renderings against the JAX package's references.
+"""The port's plain NMS renderings against the JAX package's references.
 
 ``nms_select_reference`` (the greedy twin the CUDA kernel is held against)
 and ``nms_select_ranked_reference`` (the kernel's own algorithm: rank once,
-scan in chunks of 64) must each equal, index for index and flag for flag:
+by counting or by the large-K radix route, then scan in chunks of 64) must
+each equal, index for index and flag for flag:
   * JAX ``nms_select`` / ``batched_multiclass_nms``;
   * the Pallas kernel body ``_nms_kernel`` itself, run in interpret mode;
   * ``tests/test_ops.py::np_greedy_nms``.
@@ -23,8 +24,11 @@ from sylph_tpu.ops.nms import nms_select
 from sylph_tpu.ops.nms_pallas import _nms_kernel
 from sylph_tpu_torch.ops import nms_kernel
 from sylph_tpu_torch.ops.nms import (CHUNK, batched_multiclass_nms,
+                                     class_offset_boxes,
                                      nms_select_ranked_reference,
-                                     nms_select_reference)
+                                     nms_select_reference, order_keys,
+                                     rank_count_reference,
+                                     rank_radix_reference)
 
 from test_ops import np_greedy_nms
 
@@ -91,9 +95,13 @@ def assert_all_equal(boxes, scores, valid, thr, max_outputs, oracle=True):
                                           max_outputs)
     ranked = twin(boxes, scores, valid, thr, max_outputs,
                   select=nms_select_ranked_reference)
+    # the radix route with tiles of 64, so that small cases span tiles
+    radix = twin(boxes, scores, valid, thr, max_outputs,
+                 select=partial(nms_select_ranked_reference, route="radix",
+                                tile=64))
     for name, (idx, ok) in refs.items():
         for which, (g_idx, g_ok) in (("twin", (got_idx, got_ok)),
-                                     ("ranked", ranked)):
+                                     ("ranked", ranked), ("radix", radix)):
             np.testing.assert_array_equal(g_ok, ok, err_msg=f"{which} {name}")
             np.testing.assert_array_equal(g_idx, idx,
                                           err_msg=f"{which} {name}")
@@ -309,3 +317,71 @@ def test_multiclass_dispatch_by_device():
     with pytest.raises(ValueError, match="CUDA tensor"):
         nms_kernel.nms_cuda(*boxes.permute(2, 0, 1).contiguous(), scores,
                             valid.to(torch.int32), 0.5, 4)
+
+
+# ---- the large-K route (two-stage ROI stage: proposals x classes)
+def roi_stage_inputs(rng, p, e, ticks=None):
+    """``_two_stage_infer``'s NMS input for one image: ``p`` proposal boxes,
+    each repeated over ``e`` classes, near-uniform softmax scores (rounded
+    to ``ticks`` steps when given, so that ties are everywhere), classes
+    tiled, a score threshold of 1e-4."""
+    boxes = random_boxes(rng, 1, p, 0, 1200, (8, 300))
+    logits = rng.normal(0, 0.05, (p, e + 1))
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    flat = probs[:, :-1].reshape(1, -1).astype(np.float32)
+    if ticks:
+        flat = (np.round(flat * ticks) / ticks).astype(np.float32)
+    classes = np.tile(np.arange(e, dtype=np.int32), p)[None]
+    return (np.repeat(boxes, e, axis=1), flat, classes, flat > 1e-4)
+
+
+@pytest.mark.parametrize("ticks", [None, 1 << 16])
+def test_large_k_radix_route_equals_references(ticks):
+    """K = 60,000 (past the counting route's 57,088), M = 300: the radix
+    rendering, the twin and JAX nms_select pick the same candidates, with
+    and without ties; the radix route's ranked list is the counting one."""
+    rng = np.random.RandomState(7 if ticks else 8)
+    boxes, scores, classes, valid = roi_stage_inputs(rng, 1000, 60, ticks)
+    k = scores.shape[1]
+    assert k > nms_kernel.COUNT_ROUTE_MAX_K
+    assert nms_kernel.select_route(1, k, 300) == "radix"
+    if ticks:
+        assert len(np.unique(scores)) < k // 10  # ties are everywhere
+    shifted = class_offset_boxes(torch.from_numpy(boxes),
+                                 torch.from_numpy(classes),
+                                 torch.from_numpy(valid)).numpy()
+    keys = order_keys(torch.from_numpy(scores), torch.from_numpy(valid))[0]
+    assert torch.equal(rank_radix_reference(keys),
+                       rank_count_reference(keys))
+    want = jax_select(shifted, scores, valid, 0.5, 300)
+    for name, select in (
+            ("twin", nms_select_reference),
+            ("radix", partial(nms_select_ranked_reference, route="radix"))):
+        idx, ok = twin(shifted, scores, valid, 0.5, 300, select=select)
+        np.testing.assert_array_equal(ok, want[1], err_msg=name)
+        np.testing.assert_array_equal(idx, want[0], err_msg=name)
+    assert want[1].all()
+
+
+def test_size_check_takes_lvis_all_without_a_launch():
+    """K = 1,203,000 (LVIS all: 1203 classes x 1000 proposals) at M <= 1000
+    passes the size check on the radix route; nothing is built."""
+    assert nms_kernel.select_route(1, 1_203_000, 1000) == "radix"
+    assert nms_kernel.select_route(8, 1_103_000, 300) == "radix"
+    assert nms_kernel.select_route(8, 5000, 1000) == "count"
+    with pytest.raises(ValueError, match="M=20000"):
+        nms_kernel.select_route(1, 1_203_000, 20000)
+    with pytest.raises(ValueError, match="B=65536"):
+        nms_kernel.select_route(65536, 10, 10)
+    assert not nms_kernel._fns
+
+
+def test_radix_rendering_orders_signed_zeros_and_dead():
+    """-0.0 and +0.0 share a key; dead candidates get no rank."""
+    scores = torch.tensor([0.5, -0.0, 0.0, -0.5, 0.25, 0.0, 0.5])
+    valid = torch.tensor([True, True, True, True, False, True, True])
+    keys = order_keys(scores, valid)
+    assert keys[1] == keys[2] and keys[4] == 0
+    order = rank_radix_reference(keys, tile=2)
+    assert order.tolist() == [0, 6, 1, 2, 5, 3]
+    assert torch.equal(order, rank_count_reference(keys))

@@ -43,16 +43,25 @@ def merge_trees(a, b):
     return out
 
 
-def randomize(params, rng):
+def randomize(params, rng, gains=None):
     """Replace every leaf by detectron2-scaled random values: fan-in scaled
-    conv kernels, scales near 1, biases near 0."""
+    conv and Dense kernels (times ``gains[module path]`` where given),
+    scales near 1, biases near 0; the two-stage box head's rows at unit
+    norm and its cosine scale near 20."""
 
     def leaf(path, x):
         name = path[-1].key
         shape = np.shape(x)
         if name == "kernel":
-            fan_in = int(np.prod(shape[:3]))
-            return (rng.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+            fan_in = int(np.prod(shape[:-1]))
+            gain = (gains or {}).get("/".join(str(k.key) for k in path[:-1]),
+                                     1.0)
+            return (rng.randn(*shape) * gain
+                    / np.sqrt(fan_in)).astype(np.float32)
+        if name in ("cosine_weight", "bg_weight"):
+            return (rng.randn(*shape) / np.sqrt(shape[-1])).astype(np.float32)
+        if name == "cosine_scale_param":
+            return np.asarray(20.0 + rng.randn(), np.float32)
         if name == "meta_bias_value":
             return np.asarray(-4.6 + 0.1 * rng.randn(), np.float32)
         if name == "scale":
@@ -401,3 +410,66 @@ def check_episodic_steps(pair_, **kw):
         assert "loss_snnl" in result[0][0][1]
     if kw.get("distill"):
         assert "loss_gen_distill" in result[0][0][1]
+
+
+# ------------------------------------------------------------- two-stage
+# The two-stage heads read FPN maps of O(100) without a normalization: their
+# first layers and their box regressions are scaled down as the port's
+# init_random_weights scales them, so that proposals stay near the anchors
+# and the class softmax stays spread.
+RCNN_GAINS = {"rpn_head/conv": 0.01, "rpn_head/anchor_deltas": 0.1,
+              "box_head/fc1": 0.01, "box_head/bbox_pred": 0.1}
+
+
+def shrink_rcnn_cfg(cfg, episodic: bool = True, cosine: bool = False):
+    """The LVIS Meta-RCNN finetune (or pretrain) config at test size: R-18,
+    fc_dim and codes of 64, one-conv code tower, 6 classes, 2 shots, 64x64
+    train and support canvases, a 64x96 eval canvas, RPN top-k 100 / 50,
+    20 detections, fp32, query batches of 2, no output directory."""
+    cfg.merge_from_file("sylph://LVISv1-Detection/Meta-RCNN/Meta-RCNN-FPN-"
+                        + ("finetune" if episodic else "pretrain") + ".yaml")
+    cfg.MODEL.RESNETS.DEPTH = 18
+    cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 64
+    cfg.MODEL.META_LEARN.CODE_GENERATOR.OUT_CHANNEL = 64
+    cfg.MODEL.META_LEARN.CODE_GENERATOR.TOWER_LAYERS = [["GN", "ReLU"]]
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 6
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 16
+    cfg.MODEL.FCOS.L2_NORM_CLS_WEIGHT = cosine
+    cfg.MODEL.META_LEARN.SHOT = 2
+    cfg.MODEL.META_LEARN.EVAL_SHOT = 2
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 100
+    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 50
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 100
+    cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 50
+    cfg.TEST.DETECTIONS_PER_IMAGE = 20
+    cfg.TPU.TRAIN_CANVAS = [64, 64]
+    cfg.TPU.SUPPORT_CANVAS = [64, 64]
+    cfg.TPU.EVAL_CANVAS = [64, 96]
+    cfg.TPU.MAX_GT_BOXES = 10
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.EVAL_BATCH = 2
+    cfg.INPUT.MIN_SIZE_TEST = 64
+    cfg.INPUT.MAX_SIZE_TEST = 96
+    cfg.TEST.REPEAT_TEST = 1
+    cfg.OUTPUT_DIR = ""
+    return cfg
+
+
+def rcnn_pair(episodic: bool = True, cosine: bool = False, seed: int = 0):
+    """The same random weights in a JAX ``FewShotRCNN`` (initialised by the
+    JAX runner through ``forward_episodic_train`` or
+    ``forward_pretrain_train``) and the port's (CPU), on ``shrink_rcnn_cfg``
+    configs: (jax cfg, jax model, params, port cfg, port model)."""
+    from sylph_tpu.runner.meta_faster_rcnn_runner import \
+        MetaFasterRCNNRunner as JaxRunner
+    from sylph_tpu_torch.meta_faster_rcnn_runner import MetaFasterRCNNRunner
+    from sylph_tpu_torch.utils.convert_weights import load_jax_params
+
+    jcfg = shrink_rcnn_cfg(JaxRunner.get_default_cfg(), episodic, cosine)
+    tcfg = shrink_rcnn_cfg(MetaFasterRCNNRunner.get_default_cfg(), episodic,
+                           cosine)
+    jmodel, params = JaxRunner().build_model(jcfg)
+    params = randomize(params, np.random.RandomState(seed), RCNN_GAINS)
+    tmodel = load_jax_params(
+        MetaFasterRCNNRunner(device="cpu").build_model(tcfg), params)
+    return jcfg, jmodel, params, tcfg, tmodel
