@@ -61,7 +61,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      1 warm-up and 2 counted steps, every loss finite and the backbone moved.
      Phases 8 and 9 each print a ``train`` JSON line (median step ms, data
      and step wait, images per second, peak memory, losses, the card).
-     Training never reaches the NMS kernel: its launches there must be 0;
+     One-stage training never reaches the NMS kernel: its launches there
+     must be 0;
  10. NMS at the two-stage shapes, each identical to the twin, timed from
      CUDA-graph replays beside its bound and the twin's time, with the
      ranking route it took: the RPN's (B=8, K=5000, M=1000, IoU 0.7, the 5
@@ -80,24 +81,57 @@ Phases, in order; any failure raises and the script exits non-zero:
      normalized equal to the driver's bank (1e-6). Then one query batch
      through ``make_rcnn_infer`` with a 337-row bank (the registered rows
      and rows drawn from seed 0 through ``normalize_code``): the ROI NMS on
-     real decode at K=337,000 (radix route), equal to the twin. ROIAlign's
-     time and peak memory on one image's 1000 proposals;
+     real decode at K=337,000 (radix route), equal to the twin, timed with
+     its bound and the twin's time. ROIAlign's time and peak memory on one
+     image's 1000 proposals;
  12. plain two-stage evaluation: Meta-RCNN-FPN-pretrain.yaml (1103
      classes) ``do_test`` on 8 images of lvis_pretrain_val_basev1: the ROI
-     NMS at K=1,103,000 on real decode, every call equal to the twin, a
-     complete AP dict. Phases 11-12 print one ``rcnn`` JSON line;
+     NMS at K=1,103,000 on real decode, every call equal to the twin (that
+     input timed with its bound and the twin's time), a complete AP dict.
+     Phases 11-12 print one ``rcnn`` JSON line;
  13. two-stage card against CPU (fp32, TF32 off): ``forward_instances``
      (a 3-row bank) and ``forward_base_instances`` with the cosine head,
      R-50 at a 256x256 canvas, the same seeded weights on cuda and cpu:
      normalized codes 1e-5, detections boxes 0.05, scores 1e-3, classes and
      valid counts equal (each image's detections taken in class and score
-     order).
+     order);
+ 14. two-stage episodic training at full width: Meta-RCNN-FPN-finetune.yaml
+     as ``auto_scale_world_size`` leaves it on one card (48 episodes in one
+     group: 240 supports at 384x384, 48 queries at 1024x1024; R-50, FPN
+     P2-P6, RPN top-k 2000/1000, 256 anchors and 512 ROIs sampled per
+     image, 2xFC-1024, codes of 1024; bf16; backbone frozen) from the flax
+     initializers' distributions on lvis_meta_train_basefc of phase 11's
+     tree: ``do_train`` for 1 + 3 steps. One RPN NMS launch per step and
+     micro-group (B=48, K=8768, M=1000, IoU 0.7), all on the counting route,
+     each equal to the twin; losses finite; backbone and FPN unchanged, the
+     code generator, RPN head and box head moved; a checkpoint restored and
+     stepped equal to the uninterrupted step (1e-5);
+ 15. two-stage pretraining: Meta-RCNN-FPN-pretrain.yaml (1103 classes,
+     batch 32 in 4 micro-batches of 8, the repeat-factor sampler, every
+     layer but FrozenBN trained), 1 + 2 steps; then the TFA-RCNN finetune
+     (``TFAFasterRCNNRunner``, the cosine classifier, backbone, proposal
+     generator and box-head FCs frozen), 1 + 1 steps, where only the cosine
+     rows and scale and ``bbox_pred`` move. Both hold every RPN NMS launch
+     against the twin, as phase 14. Phases 14-15 print one ``train`` line
+     per run, with the RPN NMS and ROIAlign (forward, and backward where the
+     features train) per step;
+ 16. two-stage training, card against CPU (fp32, TF32 off): R-50 at 256x256,
+     one fixed batch per mode (2 episodes x 2 shots; one pretrain image, as
+     the CPU's ROIAlign backward takes ~10 s an image), 2 steps each from the
+     same weights with the same draws (made on the CPU), the pretraining
+     at its warmup LR (the flax init diverges at the full LR unclipped):
+     anchor labels and sampled ROI sets equal,
+     losses within rtol 1e-3, trained parameters within atol 1e-4, frozen
+     ones bit-identical. Where the card's proposals differ from the CPU's
+     (near-tied objectness ranks differently), the phase says so and
+     continues those calls from the CPU's proposals.
 
 The last lines are the card's ``name, power.limit``, one JSON object
 listing every kernel with its launches (in all, by path and by ranking
 route), error and times (``earlier_ms``: the first design's time on the
 serving path's NMS input; ``meta_test_ms``: the kernel on a B=8 meta-test
-batch; ``shapes``: phase 10's cases), and ``{"ok": true, "device": {...}}``.
+batch; ``shapes``: phase 10's cases and the RPN-train inputs of phases
+14-15), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -122,7 +156,8 @@ from sylph_tpu_torch.data.synthetic import (make_synthetic_coco,
                                             make_synthetic_lvis)
 from sylph_tpu_torch.evaluation import meta_eval
 from sylph_tpu_torch.meta_faster_rcnn_runner import (
-    MetaFasterRCNNRunner, build_rcnn_model_from_cfg, eval_anchor_grid)
+    MetaFasterRCNNRunner, TFAFasterRCNNRunner, build_rcnn_model_from_cfg,
+    eval_anchor_grid, train_anchor_grid)
 from sylph_tpu_torch.models import rcnn
 from sylph_tpu_torch.ops.roi_align import multilevel_roi_align
 from sylph_tpu_torch.ops import nms_kernel
@@ -143,7 +178,7 @@ from sylph_tpu_torch.tools.profile_meta_test import DATA as META_TEST_DATA
 from sylph_tpu_torch.tools.profile_meta_test import (RCNN_DATA,
                                                      meta_test_cfg,
                                                      rcnn_meta_test_cfg)
-from sylph_tpu_torch.tools.profile_train import train_cfg
+from sylph_tpu_torch.tools.profile_train import rcnn_train_cfg, train_cfg
 from sylph_tpu_torch.train.checkpoint import CheckpointManager
 from sylph_tpu_torch.utils.events import peak_memory_gb
 
@@ -549,25 +584,28 @@ def time_nms_on(cand, dcfg):
 
 # ----------------------------------------------------------- card vs CPU
 def time_nms_meta(args, kwargs):
-    """The kernel's CUDA-graph time and bound on one meta-test query batch,
-    from the arguments its ``decode_proposals`` call was given."""
+    """The kernel's CUDA-graph time, its bound and the twin's time on one
+    meta-test query batch, from the arguments its ``decode_proposals`` call
+    was given."""
     logits, reg, ctr, iou, locs, strides, _, dcfg, splits = args
     with torch.inference_mode():
         cand = select_candidates(logits, reg, ctr, iou, locs, strides, dcfg,
                                  splits, kwargs.get("class_valid"))
     m, thr = dcfg.post_nms_topk, dcfg.nms_thresh
-    _, *planes = nms_planes(cand.boxes, cand.scores, cand.classes,
-                            cand.valid)
+    shifted, *planes = nms_planes(cand.boxes, cand.scores, cand.classes,
+                                  cand.valid)
     ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, thr, m), 50,
                  graph=True)
     idx, ok = nms_kernel.nms_cuda(*planes, thr, m)
     bound_ms, bound_by = nms_bound_ms(cand.scores, cand.valid, idx,
                                       ok.bool())
+    plain_ms = time_ms(lambda: nms_select_reference(
+        shifted, cand.scores, cand.valid, thr, m), 3, warmup=1)
     b, k = cand.scores.shape
     log(f"[nms] meta-test input B={b} K={k} M={m} "
         f"({int(cand.valid.sum())} valid): kernel {ms:.4f} ms, bound "
-        f"{bound_ms:.6f} ms ({bound_by})")
-    return ms, bound_ms, bound_by
+        f"{bound_ms:.6f} ms ({bound_by}), twin {plain_ms:.3f} ms")
+    return ms, bound_ms, bound_by, plain_ms
 
 
 # ------------------------------------------------------------- meta-test
@@ -666,9 +704,11 @@ def phase_meta_test(work: str):
                                    atol=1e-6, err_msg=key)
     log(f"[meta-test] {novel}: the .npz directory reloads into the "
         f"predictor's bank equal to the driver's ({n} rows, 1e-6)")
-    meta_ms, meta_bound, meta_by = time_nms_meta(*recorded[0][:2])
+    meta_ms, meta_bound, meta_by, meta_plain = time_nms_meta(
+        *recorded[0][:2])
     return counts, dict(meta_test_ms=meta_ms, meta_test_bound_ms=meta_bound,
-                        meta_test_bound_by=meta_by)
+                        meta_test_bound_by=meta_by,
+                        meta_test_plain_ms=meta_plain)
 
 
 def phase_card_vs_cpu(devices=("cuda", "cpu")) -> None:
@@ -830,11 +870,12 @@ def phase_train_card_vs_cpu(devices=("cuda", "cpu")) -> None:
             f"frozen bit-identical")
 
 
-def _train_line(mode: str, cfg, runner, counted, images_per_step, card):
+def _train_line(mode: str, cfg, runner, counted, images_per_step, card,
+                config: str = ""):
     """The ``train`` JSON line of one full-width run."""
     times = runner.loop_times[-counted:]
     steps_ms = [1e3 * (d + s) for d, s in times]
-    return {"train": mode, "config": os.path.basename(
+    return {"train": mode, "config": config or os.path.basename(
         CONFIG if mode == "episodic" else "Meta-FCOS-pretrain.yaml"),
         "batch": cfg.SOLVER.IMS_PER_BATCH,
         "grad_accum": cfg.TPU.GRAD_ACCUM,
@@ -889,7 +930,8 @@ def phase_train_episodic(work: str, card: str):
     return counts, line
 
 
-def check_resume(cfg, runner, state, work: str) -> None:
+def check_resume(cfg, runner, state, work: str,
+                 label: str = "train-episodic") -> None:
     """Checkpoint, restore into a fresh model, one step: equal to the same
     step taken by the uninterrupted state."""
     cfg = cfg.clone()
@@ -913,7 +955,7 @@ def check_resume(cfg, runner, state, work: str) -> None:
     if worst > 1e-5 or worst_m > 1e-5:
         raise AssertionError(f"resumed step differs: params {worst}, "
                              f"momentum {worst_m}")
-    log(f"[train-episodic] save, restore, one step = one uninterrupted step "
+    log(f"[{label}] save, restore, one step = one uninterrupted step "
         f"(params within {worst:.2e}, momentum within {worst_m:.2e})")
 
 
@@ -1126,6 +1168,21 @@ def roi_align_cost(model, images, sizes, cfg):
     return ms, peak, int(props.shape[1])
 
 
+def time_real_decode(inputs, reps: int):
+    """The ROI stage's recorded NMS input (IoU 0.5, M = 300): the kernel's
+    CUDA-graph ms, its bound (ms, basis) and the twin's ms."""
+    boxes, scores, classes, valid = inputs
+    shifted, *planes = nms_planes(boxes, scores, classes, valid)
+    ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, 0.5, 300), reps,
+                 graph=True)
+    idx, ok = nms_kernel.nms_cuda(*planes, 0.5, 300)
+    bound = nms_bound_ms(scores, valid, idx, ok.bool())
+    plain_ms = time_ms(lambda: nms_select_reference(shifted, scores, valid,
+                                                    0.5, 300), 1, warmup=1,
+                       rounds=3)
+    return ms, bound, plain_ms
+
+
 def phase_rcnn_meta_test(work: str):
     """Phase 11; returns the readings of its two main-path windows (the
     meta-test's and the 337-row bank's: launches, and launches by route) by
@@ -1214,14 +1271,13 @@ def phase_rcnn_meta_test(work: str):
             or bank_routes.get("radix") != 1 or not bool(det.valid.any())):
         raise AssertionError(f"337-row bank: NMS shapes {shapes}, routes "
                              f"{bank_routes}")
-    boxes, scores, classes, valid = roi_args[:4]
-    _, *planes = nms_planes(boxes, scores, classes, valid)
-    roi_ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, 0.5, 300), 10,
-                     graph=True)
+    roi_ms, roi_bound, roi_plain = time_real_decode(roi_args[:4], 10)
     log(f"[rcnn] 337-row bank: one batch of {images.shape[0]} in "
         f"{bank_ms:.1f} ms; ROI NMS (B={images.shape[0]}, K=337000, "
-        f"{int(valid.sum())} alive) equal to the twin, radix route, kernel "
-        f"{roi_ms:.4f} ms; {int(det.valid.sum())} detections")
+        f"{int(roi_args[3].sum())} alive) equal to the twin, radix route, "
+        f"kernel {roi_ms:.4f} ms, bound {roi_bound[0]:.6f} ms "
+        f"({roi_bound[1]}), twin {roi_plain:.3f} ms; "
+        f"{int(det.valid.sum())} detections")
     ra_ms, ra_gb, n_props = roi_align_cost(model, images, sizes, cfg)
     log(f"[rcnn] ROIAlign of {n_props} proposals at P2-P5: {ra_ms:.2f} ms, "
         f"+{ra_gb:.2f} GB peak")
@@ -1233,6 +1289,9 @@ def phase_rcnn_meta_test(work: str):
         "nms_launches_per_query_batch": launches / batches,
         "nms_routes": routes,
         "bank_337": {"batch_ms": bank_ms, "roi_nms_ms": roi_ms,
+                     "roi_nms_bound_ms": roi_bound[0],
+                     "roi_nms_bound_by": roi_bound[1],
+                     "roi_nms_plain_ms": roi_plain,
                      "nms_routes": bank_routes},
         "roi_align_ms_per_image": ra_ms,
         "roi_align_peak_gb_per_image": ra_gb}
@@ -1270,12 +1329,10 @@ def phase_rcnn_plain(work: str):
             or not routes.get("radix")):
         raise AssertionError(f"plain evaluation: NMS shapes {shapes}, routes "
                              f"{routes}")
-    boxes, scores, classes, valid = roi_args[:4]
-    _, *planes = nms_planes(boxes, scores, classes, valid)
-    roi_ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, 0.5, 300), 5,
-                     graph=True)
-    log(f"[rcnn-plain] ROI NMS input (B=8, K=1103000, {int(valid.sum())} "
-        f"alive): kernel {roi_ms:.4f} ms")
+    roi_ms, roi_bound, roi_plain = time_real_decode(roi_args[:4], 5)
+    log(f"[rcnn-plain] ROI NMS input (B=8, K=1103000, "
+        f"{int(roi_args[3].sum())} alive): kernel {roi_ms:.4f} ms, bound "
+        f"{roi_bound[0]:.6f} ms ({roi_bound[1]}), twin {roi_plain:.3f} ms")
     check_lvis_ap(name, results[name]["bbox"],
                   full["metadata"]["thing_classes"], False)
     log(f"[rcnn-plain] {name}, 8 images, 1103 classes: {n_calls} NMS calls "
@@ -1285,7 +1342,10 @@ def phase_rcnn_plain(work: str):
     return counts, {"config": "Meta-RCNN-FPN-pretrain.yaml", "images": 8,
                     "do_test_s": wall, "img_per_s": 8 / wall,
                     "peak_memory_gb": peak, "nms_launches": launches,
-                    "nms_routes": routes, "roi_nms_ms": roi_ms}
+                    "nms_routes": routes, "roi_nms_ms": roi_ms,
+                    "roi_nms_bound_ms": roi_bound[0],
+                    "roi_nms_bound_by": roi_bound[1],
+                    "roi_nms_plain_ms": roi_plain}
 
 
 def _sorted_dets(det, i):
@@ -1350,12 +1410,353 @@ def phase_rcnn_card_vs_cpu(devices=("cuda", "cpu")) -> None:
             f"{n} agree (boxes 0.05, scores 1e-3, classes equal)")
 
 
+# ------------------------------------------------------ two-stage training
+RCNN_LOSSES = {"loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg"}
+
+
+def _check_trained(what: str, runner, model, start, state, move, keep):
+    """Every loss finite with the two-stage keys; only trainable tensors
+    moved; some tensor under each prefix of ``move`` moved, none under
+    ``keep``. -> the moved names."""
+    for i, m in enumerate(runner.train_metrics):
+        if not (RCNN_LOSSES <= set(m) <= RCNN_LOSSES | {"loss_snnl"}
+                and all(np.isfinite(v) for v in m.values())):
+            raise AssertionError(f"{what} step {i}: losses {m}")
+    trainable = set(state.tx.names)
+    moved = {k for k, v in model.state_dict().items()
+             if not torch.equal(v, start[k])}
+    if not moved <= trainable:
+        raise AssertionError(f"{what}: frozen tensors moved: "
+                             f"{sorted(moved - trainable)[:5]}")
+    for prefix in move:
+        if not any(k.startswith(prefix) for k in moved):
+            raise AssertionError(f"{what}: {prefix} did not move")
+    if keep and any(k.startswith(keep) for k in moved):
+        raise AssertionError(f"{what}: one of {keep} moved")
+    return moved
+
+
+def _rcnn_train_window(what: str, runner, cfg, model):
+    """One two-stage ``do_train`` as a main-path window, every NMS call
+    recorded; -> (state, counts, one recorded call, peak GB). Requires one
+    launch per micro-group and step, on the counting route, each equal to
+    the twin."""
+    torch.cuda.reset_peak_memory_stats()
+    with NMSRecorder() as rec:
+        # ---- the main path: counts are read around this block alone
+        reset_counts()
+        _, state = runner.do_train(cfg, model)
+        counts = read_counts(what)
+        # ---- end of the main path
+        call = rec.calls[-1]
+    peak = peak_memory_gb()
+    launches, routes = counts
+    n_calls, shapes = rec.check(what)
+    want = cfg.SOLVER.MAX_ITER * max(1, cfg.TPU.GRAD_ACCUM)
+    if launches != want or n_calls != want or routes.get("count") != want:
+        raise AssertionError(f"{what}: expected {want} NMS launches on the "
+                             f"counting route, got {launches} ({routes}), "
+                             f"{n_calls} calls")
+    log(f"[{what}] {launches} NMS launches (B, K: {sorted(set(shapes))}), "
+        f"counting route, each equal to the twin")
+    return state, counts, call, peak
+
+
+def roi_align_train_ms(model, cfg, images, backward: bool):
+    """ROIAlign at P2-P5 of one image's ROI batch as the train step runs it
+    (the first BATCH_SIZE_PER_IMAGE of its proposals): the forward's ms
+    and, where the features take gradients, the backward's (forward and
+    backward less forward); medians of 5 event-timed calls."""
+    grid = train_anchor_grid(cfg)
+    roi_batch = cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+    sizes = torch.tensor([list(cfg.TPU.TRAIN_CANVAS)], dtype=torch.int32,
+                         device="cuda")
+    with torch.no_grad():
+        feats, logits, deltas = model.forward_rpn(images[:1])
+        props, _, _ = rcnn.rpn_proposals(
+            logits, deltas, torch.as_tensor(grid.anchors, device="cuda"),
+            grid.level_splits, sizes,
+            pre_nms_topk=cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN,
+            post_nms_topk=cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN)
+    rois = props[0, :roi_batch]
+    feats = [f.detach().requires_grad_(backward) for f in feats[:4]]
+    ones = torch.ones(roi_batch, dtype=torch.bool, device="cuda")
+    zeros = torch.zeros(roi_batch, dtype=torch.long, device="cuda")
+
+    def fwd():
+        return multilevel_roi_align(feats, model.ROI_STRIDES, rois, ones,
+                                    zeros, output_size=7)
+
+    fwd_ms = time_ms(fwd, 1, warmup=1, rounds=5)
+    if not backward:
+        return fwd_ms, 0.0
+    grad = torch.randn_like(fwd())
+    both_ms = time_ms(lambda: torch.autograd.grad(fwd(), feats, grad), 1,
+                      warmup=1, rounds=5)
+    return fwd_ms, both_ms - fwd_ms
+
+
+def _rcnn_line(mode, config, cfg, runner, counted, images, queries, card,
+               peak, call, model, backward):
+    """The ``train`` line of a two-stage run, with the RPN NMS (the
+    recorded input, a CUDA-graph replay) and ROIAlign per step, and the
+    RPN-train shape for the kernel line's ``shapes``."""
+    line = _train_line(mode, cfg, runner, counted, images, card,
+                       config=config)
+    line["peak_memory_gb"] = peak
+    args = call[0]
+    b, k = args[1].shape
+    case = check_two_stage_case(list(args[:4]), args[5], args[4],
+                                f"RPN train B={b} K={k} M={args[5]}",
+                                reps=10)
+    if case["route"] != "count" or k != 8768:
+        raise AssertionError(f"{mode}: RPN-train NMS at K={k}, route "
+                             f"{case['route']}")
+    groups = max(1, cfg.TPU.GRAD_ACCUM)
+    fwd_ms, bwd_ms = roi_align_train_ms(model, cfg, queries, backward)
+    n = cfg.SOLVER.IMS_PER_BATCH * cfg.MODEL.META_LEARN.QUERY_SHOT \
+        if cfg.MODEL.META_LEARN.EPISODIC_LEARNING else cfg.SOLVER.IMS_PER_BATCH
+    line.update(rpn_nms_launches_per_step=groups,
+                rpn_nms_ms_per_step=case["ms"] * groups,
+                rpn_nms_shape=[b, k, args[5]],
+                roi_align_fwd_ms_per_step=fwd_ms * n,
+                roi_align_bwd_ms_per_step=bwd_ms * n)
+    log(f"[{mode}] batch {cfg.SOLVER.IMS_PER_BATCH}, GRAD_ACCUM {groups}: "
+        f"median step {line['median_step_ms']:.1f} ms, "
+        f"{line['images_per_s']:.1f} img/s, peak {peak:.2f} GB; RPN NMS "
+        f"{line['rpn_nms_ms_per_step']:.3f} ms per step ({groups} launches "
+        f"at B={b}); ROIAlign per step {line['roi_align_fwd_ms_per_step']:.1f}"
+        f" ms forward, {line['roi_align_bwd_ms_per_step']:.1f} ms backward "
+        f"({n} images x {cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE} ROIs)")
+    return line, case
+
+
+def _first_batch(loader):
+    batch = next(loader)
+    loader.close()
+    return batch
+
+
+def phase_rcnn_train_episodic(work: str, card: str):
+    """Phase 14; -> (counts, the ``train`` line, the RPN-train shape)."""
+    cfg = rcnn_train_cfg("episodic", 4)
+    runner = MetaFasterRCNNRunner()
+    model = runner.build_model(cfg, init="train")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    state, counts, call, peak = _rcnn_train_window(
+        "rcnn_train_episodic", runner, cfg, model)
+    moved = _check_trained("rcnn_train_episodic", runner, model, start, state,
+                           ("code_generator.", "rpn_head.", "box_head."),
+                           ("backbone.", "fpn."))
+    log(f"[rcnn-train-episodic] {len(moved)} tensors moved, backbone and FPN "
+        "unchanged")
+    check_resume(cfg, runner, state, work, label="rcnn-train-episodic")
+    queries = _first_batch(runner._episodic_loader(cfg))["query_images"]
+    e = cfg.SOLVER.IMS_PER_BATCH
+    imgs = e * (cfg.MODEL.META_LEARN.SHOT + cfg.MODEL.META_LEARN.QUERY_SHOT)
+    line, case = _rcnn_line("rcnn_episodic", "Meta-RCNN-FPN-finetune.yaml",
+                            cfg, runner, 3, imgs, queries, card, peak, call,
+                            model, backward=False)
+    return counts, line, case
+
+
+def phase_rcnn_train_pretrain(card: str):
+    """Phase 15, pretraining; -> (counts, the ``train`` line, the RPN-train
+    shape)."""
+    cfg = rcnn_train_cfg("pretrain", 3)
+    runner = MetaFasterRCNNRunner()
+    model = runner.build_model(cfg, init="train")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    state, counts, call, peak = _rcnn_train_window(
+        "rcnn_train_pretrain", runner, cfg, model)
+    _check_trained("rcnn_train_pretrain", runner, model, start, state,
+                   ("backbone.", "fpn.", "rpn_head.", "box_head.cls_score."),
+                   ())
+    images = _first_batch(runner._pretrain_loader(cfg))["images"]
+    line, case = _rcnn_line("rcnn_pretrain", "Meta-RCNN-FPN-pretrain.yaml",
+                            cfg, runner, 2, cfg.SOLVER.IMS_PER_BATCH, images,
+                            card, peak, call, model, backward=True)
+    return counts, line, case
+
+
+TFA_TRAINED = {"box_head.cosine_weight", "box_head.cosine_scale_param",
+               "box_head.bbox_pred.weight", "box_head.bbox_pred.bias"}
+
+
+def phase_rcnn_train_tfa(card: str):
+    """Phase 15, the TFA-RCNN finetune; -> (counts, the ``train`` line)."""
+    cfg = rcnn_train_cfg("pretrain", 2, tfa=True)
+    runner = TFAFasterRCNNRunner()
+    model = runner.build_model(cfg, init="train")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    state, counts, _, peak = _rcnn_train_window("rcnn_train_tfa", runner,
+                                                cfg, model)
+    if set(state.tx.names) != TFA_TRAINED:
+        raise AssertionError(f"TFA-RCNN trains {sorted(state.tx.names)}")
+    _check_trained("rcnn_train_tfa", runner, model, start, state,
+                   ("box_head.cosine_weight", "box_head.bbox_pred."), ())
+    line = _train_line("rcnn_tfa", cfg, runner, 1, cfg.SOLVER.IMS_PER_BATCH,
+                       card, config="Meta-RCNN-FPN-pretrain.yaml (TFA-RCNN)")
+    line["peak_memory_gb"] = peak
+    log(f"[rcnn-train-tfa] only {sorted(TFA_TRAINED)} moved; step "
+        f"{line['median_step_ms']:.1f} ms, peak {peak:.2f} GB")
+    return counts, line
+
+
+class _Tap:
+    """Records what ``rcnn.<name>`` returns, on the CPU, call by call."""
+
+    def __init__(self, name: str):
+        self.name, self.calls = name, []
+
+    def __enter__(self):
+        self.orig = getattr(rcnn, self.name)
+
+        def tap(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.calls.append(tuple(t.cpu() for t in out))
+            return out
+
+        setattr(rcnn, self.name, tap)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(rcnn, self.name, self.orig)
+
+
+class _SharedProposals(_Tap):
+    """Records each ``rpn_proposals`` result; given the reference run's,
+    compares each call with it and, where the picks differ, hands the
+    reference's proposals on, so that what follows starts from one
+    proposal set."""
+
+    def __init__(self, reference=None):
+        super().__init__("rpn_proposals")
+        self.reference, self.differed = reference, []
+
+    def __enter__(self):
+        super().__enter__()
+        recording = getattr(rcnn, self.name)
+
+        def shared(*args, **kwargs):
+            out = recording(*args, **kwargs)
+            if self.reference is None:
+                return out
+            i = len(self.calls) - 1
+            mine, ref = self.calls[i], self.reference[i]
+            if torch.equal(mine[2], ref[2]) and torch.allclose(
+                    mine[0], ref[0], rtol=0, atol=1e-2):
+                return out
+            picks = int((mine[2] != ref[2]).sum() + (
+                (mine[0] - ref[0]).abs().amax(-1) > 1e-2).sum())
+            self.differed.append((i, picks))
+            return tuple(t.to(out[0].device) for t in ref)
+
+        setattr(rcnn, self.name, shared)
+        return self
+
+
+def _rcnn_train_small_cfg(episodic: bool):
+    cfg = MetaFasterRCNNRunner.get_default_cfg()
+    cfg.merge_from_file(
+        "sylph://LVISv1-Detection/Meta-RCNN/Meta-RCNN-FPN-"
+        + ("finetune" if episodic else "pretrain") + ".yaml")
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.TRAIN_CANVAS = [256, 256]
+    cfg.TPU.SUPPORT_CANVAS = [128, 128]
+    cfg.TPU.MAX_GT_BOXES = 20
+    cfg.MODEL.META_LEARN.SHOT = 2
+    cfg.SOLVER.IMS_PER_BATCH = 2
+    if episodic:
+        # the finetune config clips gradients at 1.0, so its full LR moves
+        # the parameters; pretraining keeps its warmup: from the flax init
+        # the unnormalized heads read FPN maps of O(100), and the full LR
+        # unclipped diverges within two steps
+        cfg.SOLVER.WARMUP_ITERS = 0
+    cfg.OUTPUT_DIR = ""
+    return cfg
+
+
+def phase_rcnn_train_card_vs_cpu(devices=("cpu", "cuda")) -> None:
+    """Phase 16. The CPU runs first and is the reference."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for episodic in (True, False):
+        mode = "episodic" if episodic else "pretrain"
+        cfg = _rcnn_train_small_cfg(episodic)
+        batch = _fixed_train_batch(episodic, tuple(cfg.TPU.TRAIN_CANVAS),
+                                   tuple(cfg.TPU.SUPPORT_CANVAS),
+                                   cfg.TPU.MAX_GT_BOXES)
+        if not episodic:  # one image: the CPU's ROIAlign backward is slow
+            batch = {k: v[:1] for k, v in batch.items()}
+            cfg.SOLVER.IMS_PER_BATCH = 1
+        runs, reference = [], None
+        for dev in devices:
+            runner = MetaFasterRCNNRunner(
+                device=dev, draws=lambda it, g, m, d=dev:
+                rcnn.SampleDraws.for_step(0, it, g, d, draw_device="cpu"))
+            model = build_rcnn_model_from_cfg(cfg, device=dev, init="train")
+            start = {k: v.clone() for k, v in model.state_dict().items()}
+            state, _, _ = runner._common_train_setup(cfg, model)
+            step = runner.make_train_step(cfg, model)
+            b = batch_to_device(batch, dev)
+            with _SharedProposals(reference) as props, \
+                    _Tap("match_anchors") as anchors, \
+                    _Tap("sample_rois") as rois:
+                losses = [{k: float(v) for k, v in step(state, b)[1].items()}
+                          for _ in range(2)]
+            reference = props.calls
+            runs.append((losses, anchors.calls, rois.calls, props.differed,
+                         {k: v.detach().cpu()
+                          for k, v in model.state_dict().items()},
+                         set(state.tx.names),
+                         {k: v.cpu() for k, v in start.items()}))
+        (los_c, anc_c, roi_c, _, pc, train_c, start), \
+            (los_g, anc_g, roi_g, differed, pg, _, _) = runs
+        if differed:
+            log(f"[rcnn-train-card-vs-cpu] {mode}: the card's proposals "
+                f"differ from the CPU's in calls {differed} ((call, boxes "
+                "that differ)); those calls continue from the CPU's "
+                "proposals")
+        for i, (a, c) in enumerate(zip(anc_g, anc_c)):
+            if not (torch.equal(a[1], c[1]) and torch.equal(a[0], c[0])):
+                raise AssertionError(f"{mode}: anchor labels of match {i} "
+                                     "differ")
+        for i, (a, c) in enumerate(zip(roi_g, roi_c)):
+            if not (all(torch.equal(x, y) for x, y in zip(a[1:], c[1:]))
+                    and torch.allclose(a[0], c[0], rtol=0, atol=1e-3)):
+                raise AssertionError(f"{mode}: sampled ROIs of call {i} "
+                                     "differ")
+        for i, (a, c) in enumerate(zip(los_g, los_c)):
+            for k in c:
+                if not (np.isfinite(a[k])
+                        and abs(a[k] - c[k]) <= 1e-3 * abs(c[k])):
+                    raise AssertionError(f"{mode} step {i} {k}: cuda {a[k]} "
+                                         f"cpu {c[k]}")
+        worst = 0.0
+        for k, v in pc.items():
+            if k in train_c:
+                worst = max(worst, float((pg[k] - v).abs().max()))
+            elif not (torch.equal(pg[k], start[k]) and torch.equal(v,
+                                                                   start[k])):
+                raise AssertionError(f"{mode}: frozen {k} changed")
+        if worst > 1e-4:
+            raise AssertionError(f"{mode}: parameters differ by {worst}")
+        n_pos = sum(int((c[1] == 1).sum()) for c in anc_c)
+        log(f"[rcnn-train-card-vs-cpu] {mode}: {len(anc_c)} anchor matchings "
+            f"({n_pos} positives) and {len(roi_c)} ROI samplings equal, "
+            f"losses {[{k: round(v, 5) for k, v in s.items()} for s in los_g]}"
+            f" within rtol 1e-3, trained parameters within {worst:.2e}, "
+            f"frozen bit-identical")
+
+
 def main() -> int:
     os.environ.pop("SYLPH_TEST_MODE", None)  # it would cut the query set
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
@@ -1383,19 +1784,27 @@ def main() -> int:
         rcnn_counts, rcnn_line = phase_rcnn_meta_test(work)
         plain_counts, plain_part = phase_rcnn_plain(work)
         phase_rcnn_card_vs_cpu()
+        ep_counts, ep_line, ep_case = phase_rcnn_train_episodic(work, card)
+        rpre_counts, rpre_line, rpre_case = phase_rcnn_train_pretrain(card)
+        tfa_counts, tfa_line = phase_rcnn_train_tfa(card)
+        phase_rcnn_train_card_vs_cpu()
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    log(f"[time] every phase, the builds included: "
+        f"{time.perf_counter() - t_start:.1f} s")
+    shapes += [ep_case, rpre_case]
 
     # every main-path window's reading: (launches, launches by route)
     counts = {"serve": serve_counts, "meta_test": meta_counts, **rcnn_counts,
-              "rcnn_plain": plain_counts}
+              "rcnn_plain": plain_counts, "rcnn_train_episodic": ep_counts,
+              "rcnn_train_pretrain": rpre_counts, "rcnn_train_tfa": tfa_counts}
     by_path = {path: n for path, (n, _) in counts.items()}
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the NMS kernel: "
                              f"{by_path}")
     train_launches = train_counts[0] + pre_counts[0]
     if train_launches:
-        raise AssertionError("training launched the NMS kernel")
+        raise AssertionError("one-stage training launched the NMS kernel")
     by_route = {r: sum(routes[r] for _, routes in counts.values())
                 for r in nms_kernel.LAUNCHES_BY_ROUTE}
     if sum(by_route.values()) != sum(by_path.values()):
@@ -1407,7 +1816,7 @@ def main() -> int:
                     launches=sum(by_path.values()),
                     launches_by_path=by_path,
                     launches_by_route=by_route,
-                    launches_on_train_paths=train_launches,
+                    launches_on_one_stage_train_paths=train_launches,
                     max_abs_err=max_err,
                     library_ms=None, **timing, **meta_timing,
                     shapes=shapes)]
@@ -1415,6 +1824,8 @@ def main() -> int:
     rcnn_line["card"] = card
     print(json.dumps(episodic_line), flush=True)
     print(json.dumps(pretrain_line), flush=True)
+    for line in (ep_line, rpre_line, tfa_line):
+        print(json.dumps(line), flush=True)
     print(json.dumps(rcnn_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,22 +1,26 @@
-"""Meta Faster R-CNN and TFA-RCNN runners, inference (port of
+"""Meta Faster R-CNN and TFA-RCNN runners (port of
 sylph_tpu/runner/meta_faster_rcnn_runner.py): ``add_rcnn_config``,
 ``build_rcnn_model_from_cfg``, ``MetaFasterRCNNRunner`` (``get_default_cfg``,
-``build_model`` with MODEL.WEIGHTS, ``do_test`` episodic and plain) and
-``TFAFasterRCNNRunner`` (non-episodic config, the base-classifier surgery).
+``build_model`` with MODEL.WEIGHTS, ``do_train`` and ``do_test``, episodic
+and plain) and ``TFAFasterRCNNRunner`` (non-episodic config, the
+base-classifier surgery).
 
-The episodic ``do_test`` is the two-phase meta-test with the two-stage
-query path (``evaluation/meta_eval.py::make_rcnn_infer``); the plain one
-evaluates the trained classifier through ``forward_base_instances``. The
-anchor grid is built once, at the eval canvas. Both run on the runner's
-device (default ``"cuda"``, which raises without a card). Two-stage
-training is not ported yet: ``do_train`` raises.
+``do_train`` runs the two-stage steps of ``train/steps.py`` (episodic
+meta-training, or the plain step of pretraining and the TFA-RCNN finetune)
+through the one-stage runner's setup, loop, loaders and checkpoints, with
+the anchors built once at the train canvas. The episodic ``do_test`` is the
+two-phase meta-test with the two-stage query path
+(``evaluation/meta_eval.py::make_rcnn_infer``); the plain one evaluates the
+trained classifier through ``forward_base_instances``, with the anchors at
+the eval canvas. Everything runs on the runner's device (default
+``"cuda"``, which raises without a card).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -27,6 +31,8 @@ from .runner import (MetaFCOSRunner, _codegen_kwargs, _mapper,
                      _plain_eval_loop, init_random_weights,
                      init_train_weights, resolve_device)
 from .train.checkpoint import load_params_any
+from .train.steps import (DrawsFactory, make_rcnn_episodic_train_step,
+                          make_rcnn_pretrain_train_step)
 from .utils.tb_writer import write_eval_results_tb
 
 
@@ -104,16 +110,33 @@ def build_rcnn_model_from_cfg(cfg, device: Union[str, torch.device] = "cuda",
     return model.eval()
 
 
-def eval_anchor_grid(cfg):
-    """The anchor grid of the eval canvas, built once per ``do_test``."""
+def _anchor_grid(cfg, canvas):
     return build_anchor_grid(
-        tuple(cfg.TPU.EVAL_CANVAS),
+        tuple(canvas),
         sizes=tuple(s[0] for s in cfg.MODEL.ANCHOR_GENERATOR.SIZES),
         aspect_ratios=tuple(cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS[0]))
 
 
+def eval_anchor_grid(cfg):
+    """The anchor grid of the eval canvas, built once per ``do_test``."""
+    return _anchor_grid(cfg, cfg.TPU.EVAL_CANVAS)
+
+
+def train_anchor_grid(cfg):
+    """The anchor grid of the train canvas, built once per ``do_train``."""
+    return _anchor_grid(cfg, cfg.TPU.TRAIN_CANVAS)
+
+
 class MetaFasterRCNNRunner(MetaFCOSRunner):
-    """Config, model and ``do_test`` for the two-stage detector."""
+    """Config, model, ``do_train`` and ``do_test`` for the two-stage
+    detector. ``draws``: the sampling draw sources of training, a function
+    (iteration, group, groups) -> source; by default
+    ``SampleDraws.for_step`` seeded from ``max(cfg.SEED, 0)``."""
+
+    def __init__(self, device: Union[str, torch.device] = "cuda",
+                 draws: Optional[DrawsFactory] = None):
+        super().__init__(device=device)
+        self.draws = draws
 
     @classmethod
     def get_default_cfg(cls) -> CfgNode:
@@ -132,10 +155,36 @@ class MetaFasterRCNNRunner(MetaFCOSRunner):
         model = build_rcnn_model_from_cfg(cfg, device=self.device, init=init)
         return self._load_weights(cfg, model)
 
-    def do_train(self, cfg, model=None):
-        raise NotImplementedError(
-            "two-stage training (RPN and ROI losses, sampling, do_train) is "
-            "not ported yet; the port runs two-stage inference and do_test")
+    def do_train(self, cfg, model: FewShotRCNN = None):
+        """Train ``model`` (built from scratch when None) for
+        SOLVER.MAX_ITER iterations, episodic or plain by the config,
+        resuming from ``{OUTPUT_DIR}/ckpt``; returns ``(model, state)``."""
+        if model is None:
+            model = self.build_model(cfg, init="train")
+        state, schedule, ckpt = self._common_train_setup(cfg, model)
+        loader = (self._episodic_loader(cfg)
+                  if cfg.MODEL.META_LEARN.EPISODIC_LEARNING
+                  else self._pretrain_loader(cfg))
+        return model, self._train_loop(cfg, state,
+                                       self.make_train_step(cfg, model),
+                                       loader, schedule, ckpt)
+
+    def make_train_step(self, cfg, model: FewShotRCNN):
+        """The two-stage step of the config's mode for ``model``, with the
+        RPN top-k and the ROI batch of the config and the anchors of the
+        train canvas: ``step(state, batch) -> (state, losses)``."""
+        kw = dict(canvas=tuple(cfg.TPU.TRAIN_CANVAS),
+                  rpn_pre_nms=cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN,
+                  rpn_post_nms=cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN,
+                  roi_batch=cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+                  seed=max(cfg.SEED, 0), draws=self.draws,
+                  steps_per_call=cfg.TPU.STEPS_PER_CALL,
+                  grad_accum=max(1, cfg.TPU.GRAD_ACCUM))
+        grid = train_anchor_grid(cfg)
+        if not cfg.MODEL.META_LEARN.EPISODIC_LEARNING:
+            return make_rcnn_pretrain_train_step(model, grid, **kw)
+        return make_rcnn_episodic_train_step(
+            model, grid, num_shots=cfg.MODEL.META_LEARN.SHOT, **kw)
 
     def make_infer(self, cfg, model, bank, grid):
         """The episodic query path: ``make_rcnn_infer`` with the config's

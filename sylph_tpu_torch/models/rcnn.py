@@ -1,4 +1,4 @@
-"""Two-stage few-shot detector, Meta Faster R-CNN, inference (port of
+"""Two-stage few-shot detector, Meta Faster R-CNN (port of
 sylph_tpu/models/rcnn.py).
 
 An FPN Faster R-CNN whose RPN is class-agnostic and whose ROI box head
@@ -25,26 +25,45 @@ linear ``cls_score`` (base detector), or with the TFA cosine layer:
 The ROI stage flattens (proposals x classes) into one candidate axis per
 image and ends in one NMS launch for the whole batch (the picks are per
 image, as in the JAX package's one launch per image). Submodules carry the
-flax names so converted weights load by name. Training (RPN and ROI losses,
-sampling) is not ported yet.
+flax names so converted weights load by name.
+
+Training (``forward_episodic_train``, ``forward_pretrain_train``):
+
+  * ``match_anchors``: detectron2's Matcher (0.3, 0.7) with low-quality
+    matches by exact equality on the one IoU tensor;
+  * ``subsample_labels``: static-shape subsampling by random priorities,
+    thresholds read from sorted values;
+  * ``rpn_losses``: objectness BCE on the sampled anchors and L1 on the
+    positives, both over B x 256;
+  * ``rpn_proposals`` on the detached RPN outputs (the NMS kernel on every
+    step on the card), then ``sample_rois`` (proposals and GT, IoU 0.5,
+    512 at 25% positives, picked by a stable sort) and ``roi_losses``
+    (softmax CE with the background last, class-agnostic L1).
+
+The sampling priorities come from a draw source (``SampleDraws``, or any
+object with its two methods): the functions here take uniforms as tensors
+and never draw themselves. ROIAlign runs per image (its lattice of samples
+at 512 ROIs fits one image at a time); the box head runs once over every
+image's ROIs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.boxes import decode_deltas
+from ..ops.boxes import decode_deltas, encode_deltas
 from ..ops.decode import _topk_lower_index_first
+from ..ops.losses import bce_with_logits, smooth_l1
 from ..ops.nms import batched_multiclass_nms
 from ..ops.roi_align import multilevel_roi_align
-from ..structures import Detections
+from ..structures import Detections, GTBoxes, pairwise_iou
 from .code_generator import CodeGeneratorHead
 from .fpn import FPN
 from .layers import Conv2d, flatten_nchw
@@ -145,6 +164,112 @@ def rpn_proposals(obj_logits: torch.Tensor, deltas: torch.Tensor,
     return nb, ns, nv
 
 
+# ---------------------------------------------------------------- sampling
+class SampleDraws:
+    """The uniforms in [0, 1) that anchor and ROI sampling rank by, from one
+    ``torch.Generator`` seeded by ``seed`` (one source per micro-group of a
+    step: ``for_step``). Draws happen on ``draw_device`` and are moved to
+    ``device``, so a source on the CPU copied to the card gives both devices
+    the same values."""
+
+    def __init__(self, seed: int, device: Union[str, torch.device],
+                 draw_device: Union[str, torch.device, None] = None):
+        self.device = torch.device(device)
+        self.draw_device = torch.device(draw_device or device)
+        self.gen = torch.Generator(self.draw_device).manual_seed(seed)
+
+    @classmethod
+    def for_step(cls, seed: int, iteration: int, group: int, device,
+                 draw_device=None) -> "SampleDraws":
+        """The source of micro-group ``group`` at ``iteration``: a resumed run
+        draws what an uninterrupted one draws."""
+        s = np.random.SeedSequence([seed, iteration, group]).generate_state(
+            1, np.uint64)[0]
+        return cls(int(s) & (2 ** 63 - 1), device, draw_device)
+
+    def _uniform(self, shape) -> torch.Tensor:
+        return torch.rand(shape, generator=self.gen,
+                          device=self.draw_device).to(self.device)
+
+    def rpn(self, b: int, k: int) -> torch.Tensor:
+        """(B, K): each image's anchor priorities."""
+        return self._uniform((b, k))
+
+    def roi(self, b: int, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, N) twice: each image's subsampling priorities and its tie
+        breaks, over its proposals and GT slots."""
+        u = self._uniform((b, 2, n))
+        return u[:, 0], u[:, 1]
+
+
+def match_anchors(anchors: torch.Tensor, gt: GTBoxes, lo: float = 0.3,
+                  hi: float = 0.7) -> Tuple[torch.Tensor, torch.Tensor]:
+    """detectron2 Matcher((0.3, 0.7), allow_low_quality_matches) for one
+    image: -> (matched GT index (K,), label (K,) in {-1 ignore, 0 negative,
+    1 positive}). An anchor whose IoU equals, exactly, the best IoU of some
+    valid GT (ties included) is positive; an image without valid GT gets
+    all zeros."""
+    iou = pairwise_iou(anchors, gt.boxes)
+    iou = torch.where(gt.valid[None, :], iou, -1.0)
+    best = iou.amax(dim=1)
+    idx = iou.argmax(dim=1)  # the first maximum
+    label = torch.where(best >= hi, 1, torch.where(best < lo, 0, -1))
+    gt_best = iou.amax(dim=0)
+    is_best_for_gt = ((iou == gt_best[None, :]) & (iou > 0)
+                      & gt.valid[None, :]).any(dim=1)
+    label = torch.where(is_best_for_gt, 1, label)
+    return idx, torch.where(gt.valid.any(), label, 0)
+
+
+def _kth_largest(x: torch.Tensor, k: int) -> torch.Tensor:
+    s = torch.sort(x, dim=-1, descending=True).values
+    return torch.clamp(s[..., min(max(k - 1, 0), x.shape[-1] - 1)], min=0.0)
+
+
+def subsample_labels(label: torch.Tensor, num_samples: int,
+                     pos_fraction: float, r: torch.Tensor) -> torch.Tensor:
+    """Keep ``num_samples`` per row of ``label`` (..., K) at most
+    ``pos_fraction`` positive, by the priorities ``r`` (uniforms of the same
+    shape): the positives at or above the k-th largest positive priority,
+    then the negatives at or above the n-th largest negative one, n what
+    the positives leave. -> float weights, 1 kept and 0 not."""
+    k_pos = int(num_samples * pos_fraction)
+    pos = label == 1
+    neg = label == 0
+    pos_rank = torch.where(pos, r, -1.0)
+    keep_pos = pos & (pos_rank >= _kth_largest(pos_rank, k_pos)[..., None])
+    num_neg = num_samples - torch.clamp(keep_pos.sum(-1), max=k_pos)
+    neg_rank = torch.where(neg, r, -1.0)
+    sorted_neg = torch.sort(neg_rank, dim=-1, descending=True).values
+    at = torch.clamp(num_neg - 1, 0, label.shape[-1] - 1)
+    neg_th = torch.clamp(sorted_neg.gather(-1, at[..., None]), min=0.0)
+    keep_neg = neg & (neg_rank >= neg_th)
+    return (keep_pos | keep_neg).float()
+
+
+def rpn_losses(obj_logits: torch.Tensor, deltas: torch.Tensor,
+               anchors: torch.Tensor, gt: GTBoxes, priorities: torch.Tensor,
+               batch_per_image: int = 256, pos_fraction: float = 0.5
+               ) -> Dict[str, torch.Tensor]:
+    """RPN objectness BCE on each image's sampled anchors and L1 (smooth L1
+    with beta 0) on its sampled positives, both summed over the batch and
+    divided by B x ``batch_per_image`` (detectron2's normalization).
+    ``priorities``: (B, K) uniforms. Anchors are matched one image at a
+    time: a (K, M) IoU table per image."""
+    b = obj_logits.shape[0]
+    idx, label = (torch.stack(t) for t in zip(
+        *(match_anchors(anchors, gt[i]) for i in range(b))))
+    w = subsample_labels(label, batch_per_image, pos_fraction, priorities)
+    pos = (label == 1) & (w > 0)
+    target = encode_deltas(anchors[None], gt.boxes.gather(
+        1, idx[..., None].expand(-1, -1, 4)))
+    loc = torch.where(pos[..., None], smooth_l1(deltas, target, beta=0.0),
+                      0.0).sum()
+    obj = (w * bce_with_logits(obj_logits, label == 1)).sum()
+    denom = b * batch_per_image
+    return {"loss_rpn_cls": obj / denom, "loss_rpn_loc": loc / denom}
+
+
 # ----------------------------------------------------------------- ROI head
 class ROIBoxHead(nn.Module):
     """FastRCNNConvFCHead (``num_fc`` FC layers) and its predictors.
@@ -218,9 +343,71 @@ class ROIBoxHead(nn.Module):
         return scores, self.bbox_pred(x)
 
 
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (..., N, C) at the rows idx (..., S) -> (..., S, C)."""
+    return x.gather(-2, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
+def sample_rois(proposals: torch.Tensor, prop_valid: torch.Tensor,
+                gt: GTBoxes, u_sub: torch.Tensor, u_tie: torch.Tensor,
+                batch_size: int = 512, pos_fraction: float = 0.25,
+                iou_thresh: float = 0.5):
+    """Match the proposals and the GT boxes (P + M) to the GT at
+    ``iou_thresh``, subsample by ``u_sub``, then take the first
+    ``batch_size`` of a stable sort by -(weight + ``u_tie`` x 1e-3): the kept
+    ones first. Leading batch axes are allowed throughout. -> rois (..., S,
+    4), matched GT index (..., S), positive (..., S), sampled (..., S)."""
+    boxes = torch.cat([proposals, gt.boxes], -2)
+    valid = torch.cat([prop_valid, gt.valid], -1)
+    iou = pairwise_iou(boxes, gt.boxes)
+    iou = torch.where(gt.valid[..., None, :] & valid[..., :, None], iou, -1.0)
+    best = iou.amax(dim=-1)
+    idx = iou.argmax(dim=-1)
+    is_pos = (best >= iou_thresh) & valid
+    is_neg = (best < iou_thresh) & valid
+    label = torch.where(is_pos, 1, torch.where(is_neg, 0, -1))
+    w = subsample_labels(label, batch_size, pos_fraction, u_sub)
+    sel = torch.sort(-(w + u_tie * 1e-3), dim=-1,
+                     stable=True).indices[..., :batch_size]
+    w_sel = w.gather(-1, sel)
+    return (_take(boxes, sel), idx.gather(-1, sel),
+            (label.gather(-1, sel) == 1) & (w_sel > 0), w_sel > 0)
+
+
+def roi_losses(scores: torch.Tensor, deltas: torch.Tensor,
+               rois: torch.Tensor, gt: GTBoxes, matched_idx: torch.Tensor,
+               is_pos: torch.Tensor, is_sampled: torch.Tensor,
+               class_targets: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Softmax CE (the target column for positives, the last column for the
+    rest) over the sampled ROIs and class-agnostic L1 on ``ROI_DELTA_WEIGHTS``
+    deltas over the positives, each divided by the sampled count (detectron2
+    FastRCNNOutputs). Per image: leading batch axes give per-image losses.
+    ``class_targets`` (..., S): each ROI's matched GT as a score column."""
+    bg = scores.shape[-1] - 1
+    tgt = torch.where(is_pos, class_targets, bg)
+    logp = torch.log_softmax(scores, dim=-1)
+    ce = -logp.gather(-1, tgt[..., None])[..., 0]
+    n_sampled = torch.clamp(is_sampled.sum(-1).float(), min=1.0)
+    cls_loss = torch.where(is_sampled, ce, 0.0).sum(-1) / n_sampled
+    target = encode_deltas(rois, _take(gt.boxes, matched_idx),
+                           ROI_DELTA_WEIGHTS)
+    loc = torch.where(is_pos[..., None], smooth_l1(deltas, target, beta=0.0),
+                      0.0).sum((-2, -1)) / n_sampled
+    return {"loss_cls": cls_loss, "loss_box_reg": loc}
+
+
+def class_to_episode(labels: torch.Tensor, episode_class_ids: torch.Tensor
+                     ) -> torch.Tensor:
+    """Contiguous dataset ids -> the episode's score column (the first equal
+    id), or E, past the last one, for a class not in the episode."""
+    eq = labels[..., None] == episode_class_ids
+    return torch.where(eq.any(-1), eq.int().argmax(-1),
+                       episode_class_ids.shape[0])
+
+
 # --------------------------------------------------------------- meta-arch
 class FewShotRCNN(nn.Module):
-    """Two-stage few-shot detector (FewShotDetector analog), inference."""
+    """Two-stage few-shot detector (FewShotDetector analog)."""
 
     RPN_STRIDES = (4, 8, 16, 32, 64)   # P2..P6
     ROI_STRIDES = (4, 8, 16, 32)       # P2..P5
@@ -245,7 +432,7 @@ class FewShotRCNN(nn.Module):
         self.num_classes = num_classes
         self.roi_in_levels = roi_in_levels
         self.pooler_resolution = pooler_resolution
-        # inference runs no autograd graph, so this changes nothing here
+        # MODEL.BACKBONE.FREEZE: the backbone and FPN run without a graph
         self.stop_backbone_grad = stop_backbone_grad
         self.backbone = ResNet(depth=depth,
                                out_features=tuple(backbone_out_features),
@@ -293,7 +480,12 @@ class FewShotRCNN(nn.Module):
         return x.to(self.compute_dtype).permute(0, 3, 1, 2)
 
     def extract_features(self, images: torch.Tensor) -> List[torch.Tensor]:
-        """images (B, H, W, 3) BGR canvas -> P2..P6 (NCHW)."""
+        """images (B, H, W, 3) BGR canvas -> P2..P6 (NCHW). With
+        ``stop_backbone_grad`` no autograd graph is built (the JAX package's
+        stop_gradient after the FPN), so no activation is kept."""
+        if self.stop_backbone_grad:
+            with torch.no_grad():
+                return self.fpn(self.backbone(self._normalize(images)))
         return self.fpn(self.backbone(self._normalize(images)))
 
     def forward_rpn(self, images: torch.Tensor):
@@ -328,6 +520,79 @@ class FewShotRCNN(nn.Module):
     def forward(self, images: torch.Tensor):
         _, logits, deltas = self.forward_rpn(images)
         return logits, deltas
+
+    # ------------------------------------------------------------- training
+    def forward_episodic_train(
+        self, support_images: torch.Tensor, support_boxes: torch.Tensor,
+        support_box_valid: torch.Tensor, query_images: torch.Tensor,
+        query_gt: GTBoxes, episode_class_ids: torch.Tensor, draws,
+        anchors: torch.Tensor, level_splits: Sequence[int],
+        image_sizes: torch.Tensor, num_shots: int, rpn_post_nms: int = 256,
+        roi_batch: int = 128, rpn_pre_nms: int = 1000
+    ) -> Dict[str, torch.Tensor]:
+        """One episodic two-stage training forward -> loss dict (reference
+        forward_few_shot_detector_training): codes from the supports, then
+        the RPN and ROI losses with the ROIs classified against the
+        episode's codes. ``query_gt`` is already filtered to the episode's
+        classes; ``draws`` gives the sampling priorities (``SampleDraws``)."""
+        sfeats = self.extract_features(support_images)
+        codes = self.code_generator(
+            sfeats[:self.roi_in_levels], support_boxes, support_box_valid,
+            num_shots=num_shots, training=True)
+        losses = self._two_stage_losses(
+            query_images, query_gt, draws, anchors, level_splits,
+            image_sizes, rpn_post_nms, roi_batch, rpn_pre_nms, codes,
+            lambda labels: class_to_episode(labels, episode_class_ids))
+        if "snnl" in codes:
+            losses["loss_snnl"] = codes["snnl"]
+        return losses
+
+    def forward_pretrain_train(
+        self, query_images: torch.Tensor, query_gt: GTBoxes, draws,
+        anchors: torch.Tensor, level_splits: Sequence[int],
+        image_sizes: torch.Tensor, rpn_post_nms: int = 256,
+        roi_batch: int = 128, rpn_pre_nms: int = 1000
+    ) -> Dict[str, torch.Tensor]:
+        """Plain Faster R-CNN training forward (base pretraining and the
+        TFA-RCNN finetune; freezing is the optimizer's mask): the classifier
+        columns are the contiguous dataset labels, background last."""
+        return self._two_stage_losses(
+            query_images, query_gt, draws, anchors, level_splits,
+            image_sizes, rpn_post_nms, roi_batch, rpn_pre_nms, None,
+            lambda labels: labels)
+
+    def _two_stage_losses(self, images, gt: GTBoxes, draws, anchors,
+                          level_splits, image_sizes, rpn_post_nms: int,
+                          roi_batch: int, rpn_pre_nms: int, class_code,
+                          class_targets: Callable) -> Dict[str, torch.Tensor]:
+        """RPN losses; proposals from the detached RPN outputs; per image
+        ROI sampling and ROIAlign; one box-head pass over every image's
+        ROIs; the ROI losses averaged over the images."""
+        feats, obj_logits, deltas = self.forward_rpn(images)
+        b, k = obj_logits.shape
+        losses = rpn_losses(obj_logits, deltas, anchors, gt,
+                            draws.rpn(b, k))
+        props, _, props_valid = rpn_proposals(
+            obj_logits.detach(), deltas.detach(), anchors, level_splits,
+            image_sizes, pre_nms_topk=rpn_pre_nms,
+            post_nms_topk=rpn_post_nms)
+        u_sub, u_tie = draws.roi(b, props.shape[1] + gt.boxes.shape[1])
+        rois, midx, is_pos, is_sampled = sample_rois(
+            props, props_valid, gt, u_sub, u_tie, batch_size=roi_batch)
+        ones = torch.ones(roi_batch, dtype=torch.bool, device=rois.device)
+        zeros = torch.zeros(roi_batch, dtype=torch.long, device=rois.device)
+        pooled = torch.cat([multilevel_roi_align(
+            [f[i:i + 1] for f in feats[:self.roi_in_levels]],
+            self.ROI_STRIDES, rois[i], ones, zeros,
+            output_size=self.pooler_resolution) for i in range(b)])
+        scores, rdeltas = self.box_head(pooled, class_code)
+        rl = roi_losses(scores.view(b, roi_batch, -1),
+                        rdeltas.view(b, roi_batch, -1), rois, gt, midx,
+                        is_pos, is_sampled,
+                        class_targets(gt.labels.gather(1, midx)))
+        losses["loss_cls"] = rl["loss_cls"].mean()
+        losses["loss_box_reg"] = rl["loss_box_reg"].mean()
+        return losses
 
     # ------------------------------------------------------------ inference
     def forward_base_instances(

@@ -13,7 +13,9 @@ sylph_tpu/predictor.py).
     (``ops/image_ops.py``) when the frame fits the eval canvas;
   * ``detect_base(image)`` runs the plain base detector.
 
-The code bank is preallocated on the device with ``TPU.MAX_CLASSES`` rows
+The model is built by ``MetaFCOSRunner.build_model``: ``weight_path`` sets
+MODEL.WEIGHTS, which may name a flat ``.npz`` of flax params (the JAX
+package's layout) or one of the port's checkpoints. The code bank is preallocated on the device with ``TPU.MAX_CLASSES`` rows
 and a ``valid`` mask; registering a class writes one row in place and
 rebuilds nothing.
 """
@@ -26,14 +28,12 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .config import get_default_cfg
 from .data.transforms import pad_to_canvas, resize_shortest_edge
 from .models.fcos_head import HeadOutputs
 from .ops.decode import decode_proposals
 from .ops.image_ops import resize_shortest_edge_device
 from .ops.locations import build_location_grid
-from .runner import (_decode_cfg, _mapper, build_model_from_cfg,
-                     resolve_device)
+from .runner import MetaFCOSRunner, _decode_cfg, _mapper, resolve_device
 from .structures import Detections
 
 
@@ -84,19 +84,20 @@ class SylphPredictor:
             raise NotImplementedError(f"runner {runner_name} is not ported "
                                       "yet")
         self.device = resolve_device(device)
+        runner = MetaFCOSRunner(device=self.device)
         if cfg is None:
-            cfg = get_default_cfg()
+            cfg = runner.get_default_cfg()
             if config_file:
                 cfg.merge_from_file(config_file)
+        if weight_path:
+            if model is not None:
+                raise ValueError("pass either model= or weight_path=, not "
+                                 "both")
+            cfg.MODEL.WEIGHTS = weight_path
         self.cfg = cfg
         if model is None:
-            model = build_model_from_cfg(cfg, device=self.device)
-            if weight_path:
-                model.load_state_dict(
-                    torch.load(weight_path, map_location=self.device,
-                               weights_only=True), strict=True)
-        elif weight_path:
-            raise ValueError("pass either model= or weight_path=, not both")
+            # MODEL.WEIGHTS: a flat .npz of flax params or a port checkpoint
+            model = runner.build_model(cfg)
         self.model = model.to(self.device).eval()
 
         self.eval_canvas = tuple(cfg.TPU.EVAL_CANVAS)

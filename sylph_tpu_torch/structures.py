@@ -1,4 +1,5 @@
-"""Fixed-shape, mask-validated detector outputs (port of sylph_tpu/structures.py).
+"""Fixed-shape, mask-validated ground truth and detector outputs (port of
+sylph_tpu/structures.py).
 
 Every tensor has a static leading box axis plus an explicit validity mask;
 box coordinates are XYXY in absolute pixels of the network input canvas.
@@ -10,6 +11,38 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class GTBoxes:
+    """Padded ground truth for one image, or a batch with leading axes (JAX
+    ``structures.GTBoxes``).
+
+    boxes:  (..., M, 4) float32 XYXY
+    labels: (..., M)    int contiguous category ids
+    valid:  (..., M)    bool
+    """
+
+    boxes: torch.Tensor
+    labels: torch.Tensor
+    valid: torch.Tensor
+
+    def __getitem__(self, i) -> "GTBoxes":
+        """The ground truth of image (or images) ``i`` of a batch."""
+        return GTBoxes(self.boxes[i], self.labels[i], self.valid[i])
+
+
+def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """IoU between two XYXY box sets: (..., N, 4), (..., M, 4) -> (..., N, M);
+    0 where the union is empty."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return torch.where(union > 0, inter / torch.clamp(union, min=1e-9), 0.0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,18 +1,22 @@
-"""CLI: train, then meta-test, a Meta-FCOS model with the port on one card
-(port of the JAX package's tools/train_net.py).
+"""CLI: train, then meta-test, a model with the port on one card (port of
+the JAX package's tools/train_net.py).
 
-    python3 -m sylph_tpu_torch.tools.train_net \
+    python3 -m sylph_tpu_torch.tools.train_net [--runner MetaFCOSRunner] \
         --config-file sylph://COCO-Detection/Meta-FCOS/Meta-FCOS-finetune.yaml \
         [--eval-only] [--output-dir DIR] [--datasets-root datasets/coco] \
-        [--device cuda] [KEY VALUE ...]
+        [--lvis-root datasets/lvis] [--device cuda] [KEY VALUE ...]
 
+``--runner`` takes MetaFCOSRunner, MetaFasterRCNNRunner (with the
+LVISv1-Detection/Meta-RCNN configs) or TFAFasterRCNNRunner.
 ``auto_scale_world_size`` emulates the config's REFERENCE_WORLD_SIZE ranks
 on the one card with TPU.GRAD_ACCUM micro-groups (batch, LR and schedule
 unchanged) where the batch divides, as the JAX package does on its device
-count. SYLPH_TEST_MODE=1 shrinks the run (``apply_test_mode``) and writes a
-synthetic COCO tree at ``--datasets-root`` when none is there. After
-training, ``do_test`` runs and ``{OUTPUT_DIR}/eval_results.json`` is
-written.
+count. ``config.yaml``, ``config_diff.yaml`` (against the runner's defaults)
+and ``env.txt`` go into OUTPUT_DIR first. SYLPH_TEST_MODE=1 shrinks the run
+(``apply_test_mode``) and writes a synthetic COCO tree at
+``--datasets-root``, and for a config on LVIS datasets a synthetic LVIS tree
+at ``--lvis-root``, where none is there. After training, ``do_test`` runs
+and ``{OUTPUT_DIR}/eval_results.json`` is written.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import os
 
 from ..data.catalog import register_all_coco, register_all_lvis
 from ..runner import create_runner
+from ..utils.setup import setup_after_launch
 
 
 def apply_test_mode(cfg):
@@ -105,6 +110,19 @@ def _ensure_test_mode_dataset(root: str) -> None:
     make_synthetic_coco(root, n_empty_val=2)
 
 
+def _ensure_test_mode_lvis(lvis_root: str, coco_root: str) -> None:
+    """The LVIS counterpart: the jsons at ``lvis_root``, the images under
+    ``coco_root``."""
+    needed = [os.path.join(lvis_root, "lvis_v1_train.json"),
+              os.path.join(lvis_root, "lvis_v1_val.json")]
+    if all(os.path.exists(p) for p in needed):
+        return
+    from ..data.synthetic import make_synthetic_lvis
+    print(f"[test-mode] no LVIS jsons at {lvis_root}; writing the synthetic "
+          "LVIS tree")
+    make_synthetic_lvis(lvis_root, coco_root)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--runner", default="MetaFCOSRunner")
@@ -134,12 +152,15 @@ def main(argv=None):
             cfg.OUTPUT_DIR = os.path.join(cfg.OUTPUT_DIR, "testmode_smoke")
     auto_scale_world_size(cfg, world=1)
     cfg.freeze()
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    setup_after_launch(cfg, cfg.OUTPUT_DIR,
+                       default_cfg=runner.get_default_cfg())
 
     uses_lvis = any(n.startswith("lvis") for n in
                     list(cfg.DATASETS.TRAIN) + list(cfg.DATASETS.TEST))
     if test_mode:
         _ensure_test_mode_dataset(args.datasets_root)
+        if uses_lvis:
+            _ensure_test_mode_lvis(args.lvis_root, args.datasets_root)
     register_all_coco(args.datasets_root)
     if uses_lvis:
         register_all_lvis(args.lvis_root, args.datasets_root)

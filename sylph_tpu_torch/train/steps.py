@@ -22,21 +22,35 @@ keeps the assigner's (B, K, M, 4) intermediate at the group's size.
 ``TPU.STEPS_PER_CALL`` (K optimizer steps in one TPU dispatch) changes no
 numbers and exists for the TPU's dispatch cost; the port runs one step per
 call and raises on larger values.
+
+The two-stage steps (``make_rcnn_episodic_train_step``,
+``make_rcnn_pretrain_train_step``) run the same micro-groups as the ranks
+of the JAX package's data-parallel mesh: each group's losses carry that
+rank's own normalizers (B x 256 anchors, the sampled ROIs of each image),
+so the mean over the groups is JAX's pmean. They apply no RandAugment:
+the JAX package's two-stage steps never read the drawn ops. Each group
+samples anchors and ROIs by the draw source ``draws(iteration, group,
+groups)`` gives it, by default ``SampleDraws.for_step(seed, iteration,
+group)`` on the model's device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..models.rcnn import SampleDraws
 from ..ops.assigner import FCOSTargets, assign_fcos_targets
 from ..ops.fcos_losses import (FCOSLossCfg, fcos_episodic_losses,
                                fcos_pretrain_losses, loss_normalizers)
 from ..ops.image_aug import rand_augment_device
+from ..structures import GTBoxes
 from .train_state import TrainState
 
 Batch = Dict[str, object]
+# (iteration, group, groups) -> a draw source with SampleDraws' methods
+DrawsFactory = Callable[[int, int, int], object]
 
 
 def _check_steps_per_call(steps_per_call: int) -> None:
@@ -182,6 +196,106 @@ def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
             if "snnl" in codes:
                 losses["loss_snnl"] = codes["snnl"]
             return losses
+
+        return state, _run_micro_groups(state, m, loss_at)
+
+    return step
+
+
+class _RCNNStepSetup:
+    """What both two-stage steps share: the anchors on the model's device,
+    the canvas as every image's size, the micro-group count and the draw
+    sources."""
+
+    def __init__(self, model, grid, canvas: Sequence[int], seed: int,
+                 draws: Optional[DrawsFactory], steps_per_call: int,
+                 grad_accum: int):
+        _check_steps_per_call(steps_per_call)
+        self.m = max(1, grad_accum)
+        self.device = next(model.parameters()).device
+        self.anchors = torch.as_tensor(grid.anchors, device=self.device)
+        self.splits = tuple(grid.level_splits)
+        self.canvas = torch.tensor([list(canvas)], dtype=torch.int32,
+                                   device=self.device)
+        self.draws = draws or (lambda it, g, m: SampleDraws.for_step(
+            seed, it, g, self.device))
+
+    def sizes(self, b: int) -> torch.Tensor:
+        return self.canvas.expand(b, 2)
+
+
+def make_rcnn_episodic_train_step(model, grid, num_shots: int,
+                                  canvas: Sequence[int], rpn_pre_nms: int,
+                                  rpn_post_nms: int, roi_batch: int,
+                                  seed: int = 0,
+                                  draws: Optional[DrawsFactory] = None,
+                                  steps_per_call: int = 1,
+                                  grad_accum: int = 1
+                                  ) -> Callable[[TrainState, Batch],
+                                                Tuple[TrainState, Dict]]:
+    """Episodic two-stage step. ``grid``: the ``AnchorGrid`` of ``canvas``
+    (TPU.TRAIN_CANVAS). Batch (E episodes) as for
+    ``make_episodic_train_step``; E divisible by ``grad_accum``. A group's
+    queries keep only the GT of that group's episode classes."""
+    s = _RCNNStepSetup(model, grid, canvas, seed, draws, steps_per_call,
+                       grad_accum)
+    m = s.m
+
+    def step(state: TrainState, batch: Batch):
+        it = state.step
+        ids_m = batch["episode_class_ids"].reshape(m, -1)     # (m, E/m)
+        labels = batch["query_gt_labels"]                     # (Bq, M)
+        bq, mx = labels.shape
+        in_ep = (labels.reshape(m, bq // m, mx)[..., None]
+                 == ids_m[:, None, None, :]).any(-1)
+        valid = batch["query_gt_valid"] & in_ep.reshape(bq, mx)
+        qmb = bq // m
+        smb = batch["support_images"].shape[0] // m
+
+        def loss_at(gi):
+            qs = slice(gi * qmb, (gi + 1) * qmb)
+            ss = slice(gi * smb, (gi + 1) * smb)
+            gt = GTBoxes(batch["query_gt_boxes"][qs], labels[qs], valid[qs])
+            return model.forward_episodic_train(
+                batch["support_images"][ss], batch["support_boxes"][ss],
+                batch["support_box_valid"][ss], batch["query_images"][qs],
+                gt, ids_m[gi], s.draws(it, gi, m), s.anchors, s.splits,
+                s.sizes(qmb), num_shots, rpn_post_nms=rpn_post_nms,
+                roi_batch=roi_batch, rpn_pre_nms=rpn_pre_nms)
+
+        return state, _run_micro_groups(state, m, loss_at)
+
+    return step
+
+
+def make_rcnn_pretrain_train_step(model, grid, canvas: Sequence[int],
+                                  rpn_pre_nms: int, rpn_post_nms: int,
+                                  roi_batch: int, seed: int = 0,
+                                  draws: Optional[DrawsFactory] = None,
+                                  steps_per_call: int = 1,
+                                  grad_accum: int = 1
+                                  ) -> Callable[[TrainState, Batch],
+                                                Tuple[TrainState, Dict]]:
+    """Plain two-stage step (pretraining, TFA-RCNN). Batch: images (B, H, W,
+    3) uint8 BGR, gt_boxes (B, M, 4), gt_labels (B, M), gt_valid (B, M); B
+    divisible by ``grad_accum``."""
+    s = _RCNNStepSetup(model, grid, canvas, seed, draws, steps_per_call,
+                       grad_accum)
+    m = s.m
+
+    def step(state: TrainState, batch: Batch):
+        it = state.step
+        images = batch["images"]
+        mb = images.shape[0] // m
+
+        def loss_at(gi):
+            sl = slice(gi * mb, (gi + 1) * mb)
+            gt = GTBoxes(batch["gt_boxes"][sl], batch["gt_labels"][sl],
+                         batch["gt_valid"][sl])
+            return model.forward_pretrain_train(
+                images[sl], gt, s.draws(it, gi, m), s.anchors, s.splits,
+                s.sizes(mb), rpn_post_nms=rpn_post_nms, roi_batch=roi_batch,
+                rpn_pre_nms=rpn_pre_nms)
 
         return state, _run_micro_groups(state, m, loss_at)
 

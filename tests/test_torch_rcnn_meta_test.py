@@ -108,8 +108,8 @@ def test_default_cfg_equals_jax(tfa):
 
 def test_create_runner_and_refusals():
     """Both two-stage names (dotted too) build on the CPU; the unported
-    runners raise; without a card every two-stage entry point refuses the
-    default device."""
+    runners raise; without a card every two-stage entry point, ``do_train``
+    included, refuses the default device."""
     from sylph_tpu_torch.evaluation.meta_eval import make_rcnn_infer
     from sylph_tpu_torch.models.rcnn import build_anchor_grid
     from sylph_tpu_torch.runner import create_runner
@@ -121,14 +121,18 @@ def test_create_runner_and_refusals():
     for name in ("MetaFCOSROIEncoderRunner", "TFAFewShotDetectionRunner"):
         with pytest.raises(NotImplementedError, match="not ported"):
             create_runner(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="two-stage training"):
-        MetaFasterRCNNRunner(device="cpu").do_train(None)
     if torch.cuda.is_available():
         return
     for make in (MetaFasterRCNNRunner, TFAFasterRCNNRunner,
                  lambda: create_runner("MetaFasterRCNNRunner")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+    # the two-stage do_train refuses the default device without a card
+    cfg = MetaFasterRCNNRunner.get_default_cfg()
+    for train in (lambda: MetaFasterRCNNRunner().do_train(cfg),
+                  lambda: create_runner("TFAFasterRCNNRunner").do_train(cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train()
     bank = {"cls_conv": np.zeros((2, 64), np.float32),
             "cls_bias": np.zeros((2,), np.float32)}
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -473,3 +473,181 @@ def rcnn_pair(episodic: bool = True, cosine: bool = False, seed: int = 0):
     tmodel = load_jax_params(
         MetaFasterRCNNRunner(device="cpu").build_model(tcfg), params)
     return jcfg, jmodel, params, tcfg, tmodel
+
+
+# ------------------------------------------------------- two-stage training
+def rcnn_train_cfg(cfg):
+    """A ``shrink_rcnn_cfg`` config at the two-stage training tests' size:
+    a 128x128 train canvas, RPN top-k 100 / 64, ROI batches of 32."""
+    cfg = cfg.clone()
+    cfg.defrost()
+    cfg.TPU.TRAIN_CANVAS = [128, 128]
+    cfg.INPUT.MIN_SIZE_TRAIN = [96]
+    cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 100
+    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 64
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 32
+    return cfg
+
+
+class JaxDraws:
+    """A draw source (``sylph_tpu_torch.models.rcnn.SampleDraws``' methods)
+    that replays the JAX two-stage step's keys: the step key (the train
+    loop's ``fold_in(PRNGKey(7), iteration)``), folded with the rank on a
+    mesh of more than one device, then ``fold_in(., 1)`` split into the RPN
+    key (split per image) and the ROI key (folded with the image, split into
+    the subsample and tie-break keys)."""
+
+    def __init__(self, step_key, rank=None):
+        if rank is not None:
+            step_key = jax.random.fold_in(step_key, rank)
+        self.k_rpn, self.k_roi = jax.random.split(
+            jax.random.fold_in(step_key, 1))
+
+    def rpn(self, b, k):
+        keys = jax.random.split(self.k_rpn, b)
+        return torch.from_numpy(np.stack(
+            [np.asarray(jax.random.uniform(key, (k,))) for key in keys]))
+
+    def roi(self, b, n):
+        sub, tie = [], []
+        for i in range(b):
+            k_sub, k_tie = jax.random.split(jax.random.fold_in(self.k_roi, i))
+            sub.append(np.asarray(jax.random.uniform(k_sub, (n,))))
+            tie.append(np.asarray(jax.random.uniform(k_tie, (n,))))
+        return torch.from_numpy(np.stack(sub)), torch.from_numpy(np.stack(tie))
+
+
+def train_loop_key(iteration):
+    """The JAX train loop's key for ``iteration``."""
+    return jax.random.fold_in(jax.random.PRNGKey(7), iteration)
+
+
+def jax_draws(mesh_size):
+    """The port's draws factory replaying a JAX run on ``mesh_size``
+    devices, one micro-group per device."""
+    return lambda it, g, m: JaxDraws(train_loop_key(it),
+                                     g if mesh_size > 1 else None)
+
+
+def rcnn_train_batch(episodic, seed=0, n=2, shot=2, canvas=(128, 128),
+                     support=(64, 64), max_gt=10):
+    """A two-stage training batch from a numpy seed: ``n`` images (or
+    episodes of ``shot`` supports and one query each) with 4-6 valid GT
+    boxes of 20-70 px, pixels near the BGR mean, drawn RandAugment ops that
+    the two-stage steps do not read; episode ``i`` shows class ``ids[i]``
+    in its query."""
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0, canvas[0] - 72, (n, max_gt, 2))
+    wh = rng.uniform(20, 70, (n, max_gt, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    labels = rng.randint(0, 6, (n, max_gt)).astype(np.int32)
+    valid = np.zeros((n, max_gt), bool)
+    for i in range(n):
+        valid[i, :4 + i % 3] = True
+    mean = np.float32([103.530, 116.280, 123.675])
+    images = (mean + rng.uniform(-20, 20, (n, *canvas, 3))).astype(np.uint8)
+    ops = np.zeros((n, 2), np.int32)
+    aug = dict(aug_ops=ops, aug_params=np.ones((n, 2), np.float32),
+               image_sizes=np.tile(np.int32(canvas), (n, 1)))
+    if not episodic:
+        return {"images": images, "gt_boxes": boxes, "gt_labels": labels,
+                "gt_valid": valid, **aug}
+    ids = np.arange(1, n + 1, dtype=np.int32)
+    labels[:, 0] = ids
+    sx = rng.uniform(2, 20, (n * shot, 2))
+    return {
+        "support_images": (mean + rng.uniform(
+            -20, 20, (n * shot, *support, 3))).astype(np.uint8),
+        "support_boxes": np.concatenate([sx, sx + 36], -1).astype(np.float32),
+        "support_box_valid": np.ones((n * shot,), bool),
+        "query_images": images, "query_gt_boxes": boxes,
+        "query_gt_labels": labels, "query_gt_valid": valid,
+        "episode_class_ids": ids,
+        **{"query_" + k: v for k, v in aug.items()}}
+
+
+def jax_rcnn_loss_apply(jmodel, jcfg, episodic):
+    """``loss_apply(params, batch, rng, axis)`` as the JAX runner's
+    ``do_train`` builds it for the config's mode."""
+    from sylph_tpu.models.rcnn import FewShotRCNN, build_anchor_grid
+    from sylph_tpu.structures import GTBoxes
+
+    tc = tuple(jcfg.TPU.TRAIN_CANVAS)
+    grid = build_anchor_grid(tc)
+    anchors = jnp.asarray(grid.anchors)
+    rpn = jcfg.MODEL.RPN
+    roi_batch = jcfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+
+    def loss_apply(p, batch, rng, axis):
+        key = "query_images" if episodic else "images"
+        sizes = jnp.tile(jnp.asarray([list(tc)]), (batch[key].shape[0], 1))
+        if not episodic:
+            gt = GTBoxes(batch["gt_boxes"], batch["gt_labels"],
+                         batch["gt_valid"])
+            return jmodel.apply(
+                {"params": p}, batch["images"], gt, rng, anchors,
+                grid.level_splits, sizes, axis, rpn.POST_NMS_TOPK_TRAIN,
+                roi_batch, rpn_pre_nms=rpn.PRE_NMS_TOPK_TRAIN,
+                method=FewShotRCNN.forward_pretrain_train)
+        labels = batch["query_gt_labels"]
+        in_ep = jnp.any(labels[..., None]
+                        == batch["episode_class_ids"][None, None, :], -1)
+        gt = GTBoxes(batch["query_gt_boxes"], labels,
+                     batch["query_gt_valid"] & in_ep)
+        return jmodel.apply(
+            {"params": p}, batch["support_images"], batch["support_boxes"],
+            batch["support_box_valid"], batch["query_images"], gt,
+            batch["episode_class_ids"], rng, anchors, grid.level_splits,
+            sizes, jcfg.MODEL.META_LEARN.SHOT, axis,
+            rpn.POST_NMS_TOPK_TRAIN, roi_batch,
+            rpn_pre_nms=rpn.PRE_NMS_TOPK_TRAIN,
+            method=FewShotRCNN.forward_episodic_train)
+
+    return loss_apply
+
+
+def run_rcnn_steps(pair_, episodic, batch, n=2, grad_accum=1, freeze_kw=None,
+                   snnl=False):
+    """``n`` two-stage steps in both packages from the same weights: JAX's
+    ``_sgd_step_factory`` on a mesh of ``grad_accum`` devices, the port's
+    step with as many micro-groups and the replayed draws. Returns what
+    ``run_steps`` returns."""
+    from sylph_tpu.parallel.mesh import create_mesh, shard_batch
+    from sylph_tpu.runner.meta_faster_rcnn_runner import \
+        MetaFasterRCNNRunner as JaxRunner
+    from sylph_tpu.train.steps import finalize_step
+    from sylph_tpu.train.train_state import create_train_state as jax_state
+    from sylph_tpu_torch.meta_faster_rcnn_runner import MetaFasterRCNNRunner
+    from sylph_tpu_torch.train import optimizer as topt
+    from sylph_tpu_torch.train.train_state import TrainState
+    from sylph_tpu_torch.utils.convert_weights import state_dict_from_jax
+    jcfg, jmodel, params, tcfg, tmodel = pair_
+    jcfg, tcfg = rcnn_train_cfg(jcfg), rcnn_train_cfg(tcfg)
+    model = copy.deepcopy(tmodel)
+    if snnl:
+        for c in (jcfg, tcfg):
+            c.MODEL.META_LEARN.CODE_GENERATOR.CONTRASTIVE_LOSS = "snnl"
+        jmodel = jmodel.clone(code_generator_kwargs=dict(
+            jmodel.code_generator_kwargs, contrastive_loss="snnl"))
+        model.code_generator.contrastive_loss = "snnl"
+    tcfg.TPU.GRAD_ACCUM = grad_accum
+    kw = opt_kw(jcfg, freeze_with(jcfg, **(freeze_kw or {})))
+    tx = jax_tx(params, kw)
+    jst = jax_state(jax.tree.map(jnp.array, params), tx)
+    mesh = create_mesh(grad_accum)
+    jstep = finalize_step(JaxRunner._sgd_step_factory(
+        tx, jax_rcnn_loss_apply(jmodel, jcfg, episodic)), mesh,
+        with_rng=True)
+    ttx, _ = topt.build_optimizer(model, **kw)
+    tst = TrainState(model, ttx)
+    tstep = MetaFasterRCNNRunner(device="cpu", draws=jax_draws(
+        grad_accum)).make_train_step(tcfg, model)
+    losses = []
+    for i in range(n):
+        jst, jm = jstep(jst, shard_batch(mesh, batch), train_loop_key(i))
+        _, tm = tstep(tst, torch_batch(batch))
+        losses.append(({k: float(v) for k, v in jm.items()},
+                       {k: float(v) for k, v in tm.items()}))
+    js = jst.unpack() if hasattr(jst, "unpack") else jst
+    return (losses, state_dict_from_jax(jax.tree.map(np.asarray, js.params)),
+            model, tst)
