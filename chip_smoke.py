@@ -125,6 +125,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      ones bit-identical. Where the card's proposals differ from the CPU's
      (near-tied objectness ranks differently), the phase says so and
      continues those calls from the CPU's proposals.
+ 17. the ROIEncoder (``MetaFCOSROIEncoderRunner``, the COCO ROIEncoder
+     finetune config at full width, bf16): serving as phase 4 on the host
+     path (3 classes at 10 shots, 5 requests, the last at K = 5000; each
+     request's detections against the twin-decoded dense outputs); the
+     meta-test as phase 6 (one NMS launch a query batch, each equal to the
+     twin, complete AP dicts, the ``.npz`` codes reloaded into the bank
+     within 1e-6 with no normalization); episodic ``do_train`` as
+     ``auto_scale_world_size`` leaves it (48 episodes in 16 micro-groups,
+     dropout 0.1 drawn per step and micro-group), 1 + 2 steps: losses
+     finite, backbone bit-identical, the ROIEncoder (attention, tokenizer,
+     heads, MS-CAM) moved, a resume equal to the uninterrupted step, no NMS
+     launch;
+ 18. the TFA one-stage finetune (``TFAFewShotDetectionRunner``,
+     tfa-finetune.yaml at IMS_PER_BATCH 16 on coco_pretrain_finetune_all):
+     a seeded base-class model saved as a port checkpoint is MODEL.WEIGHTS;
+     the surgery's base rows equal the checkpoint's at the mapped columns;
+     ``do_train`` 1 + 2 steps (backbone, FPN, cls tower and bbox branch
+     bit-identical, ``cls_logits`` moved, no NMS launch); the plain
+     ``do_test`` on coco_meta_val_all (every NMS launch equal to the twin, a
+     complete AP dict); then the cosine head (the surgery off: the JAX
+     package fails on a ``cls_logits`` checkpoint there), 1 + 1 steps where
+     only ``cosine_*`` moves among the head's tensors, and ``do_test``;
+ 19. DCNv2 towers (the finetune config with MODEL.FCOS.USE_DEFORMABLE): the
+     offset heads at seeded non-zero weights (samples between pixels and
+     past the border), serving as in phase 17, then one pretraining step at
+     batch 16 with finite losses and finite, non-zero offset gradients;
+ 20. the variants, card against CPU (fp32, TF32 off, R-50 at 256x256): the
+     ROIEncoder's codes at eval (1e-5), the cosine head's and the DCN
+     towers' dense outputs (phase 5's limits), two ROIEncoder episodic
+     steps at DROPOUT 0.0 (phase 7's limits).
+     Phases 17-19 print one ``serve`` or ``train`` JSON line per run.
 
 The last lines are the card's ``name, power.limit``, one JSON object
 listing every kernel with its launches (in all, by path and by ranking
@@ -137,6 +168,7 @@ batch; ``shapes``: phase 10's cases and the RPN-train inputs of phases
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -154,11 +186,13 @@ from sylph_tpu_torch.data.loader import build_query_loader
 from sylph_tpu_torch.data.meta_dataset import MetaDataset
 from sylph_tpu_torch.data.synthetic import (make_synthetic_coco,
                                             make_synthetic_lvis)
+from sylph_tpu_torch import runner as runner_mod
 from sylph_tpu_torch.evaluation import meta_eval
 from sylph_tpu_torch.meta_faster_rcnn_runner import (
     MetaFasterRCNNRunner, TFAFasterRCNNRunner, build_rcnn_model_from_cfg,
     eval_anchor_grid, train_anchor_grid)
 from sylph_tpu_torch.models import rcnn
+from sylph_tpu_torch.ops.deform_conv import DFConv2d
 from sylph_tpu_torch.ops.roi_align import multilevel_roi_align
 from sylph_tpu_torch.ops import nms_kernel
 from sylph_tpu_torch.ops.decode import select_candidates
@@ -171,14 +205,15 @@ from sylph_tpu_torch.ops.assigner import assign_fcos_targets
 from sylph_tpu_torch.ops.image_aug import rand_augment_device
 from sylph_tpu_torch.ops.locations import build_location_grid
 from sylph_tpu_torch.runner import (MetaFCOSRunner, _freeze_cfg, _mapper,
-                                    build_model_from_cfg)
+                                    build_model_from_cfg, create_runner)
 from sylph_tpu_torch.data.loader import batch_to_device
 from sylph_tpu_torch.data.transforms import draw_rand_augment
 from sylph_tpu_torch.tools.profile_meta_test import DATA as META_TEST_DATA
-from sylph_tpu_torch.tools.profile_meta_test import (RCNN_DATA,
+from sylph_tpu_torch.tools.profile_meta_test import (ONE_STAGE, RCNN_DATA,
                                                      meta_test_cfg,
                                                      rcnn_meta_test_cfg)
-from sylph_tpu_torch.tools.profile_train import rcnn_train_cfg, train_cfg
+from sylph_tpu_torch.tools.profile_train import (rcnn_train_cfg, train_cfg,
+                                                 variant_train_cfg)
 from sylph_tpu_torch.train.checkpoint import CheckpointManager
 from sylph_tpu_torch.utils.events import peak_memory_gb
 
@@ -609,29 +644,41 @@ def time_nms_meta(args, kwargs):
 
 
 # ------------------------------------------------------------- meta-test
-def check_ap_dict(name: str, bbox: dict, class_names) -> None:
+def check_ap_dict(name: str, bbox: dict, class_names,
+                  repeated: bool = True) -> None:
+    """Every AP key of the dataset, with the REPEAT_TEST spreads when the
+    meta-test ran (``repeated``), without for a plain evaluation."""
     want = ["AP", "AP50", "AP75", "APs", "APm", "APl", "AR@1", "AR@10",
             "AR@100"] + [f"AP-{c}" for c in class_names]
     if name.endswith("_all"):
         want += ["nAP", "bAP"]
-    want += [f"{k}_std" for k in want]
+    if repeated:
+        want += [f"{k}_std" for k in want]
     missing = [k for k in want if not isinstance(bbox.get(k), float)]
     if missing:
         raise AssertionError(f"{name}: AP dict lacks {missing}")
 
 
-def phase_meta_test(work: str):
-    """The two-phase meta-test at full width; returns its NMS launch counts and
-    the kernel's time on one of its B=8 batches."""
+def coco_tree(work: str) -> None:
+    """The synthetic COCO tree of the one-stage phases, written once."""
     root = os.path.join(work, "coco")
-    make_synthetic_coco(root, **META_TEST_DATA)
+    if not os.path.isdir(root):
+        make_synthetic_coco(root, **META_TEST_DATA)
     register_all_coco(root)
-    cfg = meta_test_cfg(os.path.join(work, "out"))
-    runner = MetaFCOSRunner()
+
+
+def phase_meta_test(work: str, runner_name: str = "MetaFCOSRunner",
+                    label: str = "meta_test"):
+    """The two-phase meta-test at full width with ``runner_name``'s config;
+    returns its NMS launch counts and the kernel's time on one of its B=8
+    batches (the default runner) or the driver's stats."""
+    coco_tree(work)
+    cfg = meta_test_cfg(os.path.join(work, label), runner_name)
+    runner = create_runner(runner_name)
     model = runner.build_model(cfg)
     t0 = time.perf_counter()
     runner.do_test(cfg, model)  # warm-up: cuDNN plans, the g++ matcher
-    log(f"[meta-test] warm-up do_test: {time.perf_counter() - t0:.1f} s")
+    log(f"[{label}] warm-up do_test: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(cfg.OUTPUT_DIR)
 
     recorded = []
@@ -649,7 +696,7 @@ def phase_meta_test(work: str):
         t0 = time.perf_counter()
         results = runner.do_test(cfg, model)
         wall = time.perf_counter() - t0
-        counts = read_counts("meta_test")
+        counts = read_counts(label)
         # ---- end of the main path
     finally:
         meta_eval.decode_proposals = decode
@@ -669,19 +716,19 @@ def phase_meta_test(work: str):
         files = sorted(os.listdir(code_dir))
         if files != sorted(f"{c}.npz" for c in supported):
             raise AssertionError(f"{name}: class code files {files}")
-        log(f"[meta-test] {name}: {int(st['classes'])} classes, "
+        log(f"[{label}] {name}: {int(st['classes'])} classes, "
             f"{int(st['query_images'])} query images in "
             f"{int(st['query_batches'])} batches of {cfg.TPU.EVAL_BATCH}; "
             f"AP {res['bbox']['AP']:.4f}, AP50 {res['bbox']['AP50']:.4f}")
-        log(f"[meta-test] {name} times (s): " + ", ".join(
+        log(f"[{label}] {name} times (s): " + ", ".join(
             f"{k} {v:.4f}" for k, v in st.items()
             if k.endswith("_s")))
-        log(f"[meta-test] {name}: code generation "
+        log(f"[{label}] {name}: code generation "
             f"{st['codegen_s'] / st['classes'] * 1e3:.2f} ms per class "
             f"({cfg.TPU.CLASS_BATCH} classes per call), query "
             f"{st['query_images'] / st['query_s']:.2f} img/s at B="
             f"{cfg.TPU.EVAL_BATCH}")
-    log(f"[meta-test] do_test on both datasets: {wall:.2f} s on the host "
+    log(f"[{label}] do_test on both datasets: {wall:.2f} s on the host "
         f"clock; NMS launches {launches}")
     if launches != batches or len(recorded) != batches:
         raise AssertionError(f"expected {batches} NMS launches (one per "
@@ -689,21 +736,28 @@ def phase_meta_test(work: str):
                              f"({len(recorded)} decode calls)")
     for i, (args, kwargs, det) in enumerate(recorded):
         want = decode(*args, **dict(kwargs, nms_impl="reference"))
-        check_detections_equal(det, want, f"meta-test batch {i}")
-    log(f"[meta-test] all {batches} query batches equal the twin-decoded "
+        check_detections_equal(det, want, f"{label} batch {i}")
+    log(f"[{label}] all {batches} query batches equal the twin-decoded "
         "ones, the padded tail batches included")
 
     novel = "coco_meta_val_novel"
-    pred = SylphPredictor(cfg=cfg, model=model, class_code_path=os.path.join(
-        cfg.OUTPUT_DIR, "class_codes", novel))
+    pred = SylphPredictor(cfg=cfg, model=model, runner_name=runner_name,
+                          class_code_path=os.path.join(
+                              cfg.OUTPUT_DIR, "class_codes", novel))
     bank = runner.drivers[novel].bank
     n = bank["cls_conv"].shape[0]
     for key, got in (("cls_conv", pred.bank.conv[:n]),
                      ("cls_bias", pred.bank.bias[:n])):
         np.testing.assert_allclose(got.cpu().numpy(), bank[key], rtol=0,
                                    atol=1e-6, err_msg=key)
-    log(f"[meta-test] {novel}: the .npz directory reloads into the "
-        f"predictor's bank equal to the driver's ({n} rows, 1e-6)")
+    norm = ("no normalization: the ROIEncoder's codes are final"
+            if model.code_generator_name == "ROIEncoder"
+            else "normalized on loading")
+    log(f"[{label}] {novel}: the .npz directory reloads into the "
+        f"predictor's bank equal to the driver's ({n} rows, 1e-6, {norm})")
+    if runner_name != "MetaFCOSRunner":
+        return counts, {name: dict(d.stats)
+                        for name, d in runner.drivers.items()}
     meta_ms, meta_bound, meta_by, meta_plain = time_nms_meta(
         *recorded[0][:2])
     return counts, dict(meta_test_ms=meta_ms, meta_test_bound_ms=meta_bound,
@@ -807,12 +861,15 @@ def _train_small_cfg(episodic: bool):
     return cfg
 
 
-def phase_train_card_vs_cpu(devices=("cuda", "cpu")) -> None:
+def phase_train_card_vs_cpu(devices=("cuda", "cpu"), cases=None) -> None:
+    """Two train steps on each device from the same init and batch:
+    ``cases`` is a list of (label, config), by default the episodic and the
+    pretrain step of ``_train_small_cfg``."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for episodic in (True, False):
-        mode = "episodic" if episodic else "pretrain"
-        cfg = _train_small_cfg(episodic)
+    for mode, cfg in cases or [("episodic", _train_small_cfg(True)),
+                               ("pretrain", _train_small_cfg(False))]:
+        episodic = cfg.MODEL.META_LEARN.EPISODIC_LEARNING
         batch = _fixed_train_batch(episodic, tuple(cfg.TPU.TRAIN_CANVAS),
                                    tuple(cfg.TPU.SUPPORT_CANVAS),
                                    cfg.TPU.MAX_GT_BOXES)
@@ -935,7 +992,7 @@ def check_resume(cfg, runner, state, work: str,
     """Checkpoint, restore into a fresh model, one step: equal to the same
     step taken by the uninterrupted state."""
     cfg = cfg.clone()
-    cfg.OUTPUT_DIR = os.path.join(work, "resume")
+    cfg.OUTPUT_DIR = os.path.join(work, "resume", label)
     CheckpointManager(os.path.join(cfg.OUTPUT_DIR, "ckpt")).save(
         state.step, state)
     loader = runner._episodic_loader(cfg)
@@ -1750,6 +1807,488 @@ def phase_rcnn_train_card_vs_cpu(devices=("cpu", "cuda")) -> None:
             f"frozen bit-identical")
 
 
+# ------------------------------------------------ one-stage variants (17-20)
+ROI_ENCODER = "MetaFCOSROIEncoderRunner"
+TFA = "TFAFewShotDetectionRunner"
+REQUEST_SIZES = [(480, 640), (800, 1216), (720, 1280), (1024, 768),
+                 (600, 900)]
+# the offset heads' gain in phases 19-20: offsets of a few pixels, so
+# sampling is fractional and reaches across the maps' borders
+OFFSET_GAIN = 4.0
+
+
+def variant_serving_cfg(runner_name: str = "MetaFCOSRunner",
+                        deformable: bool = False):
+    """Phase 4's serving config for ``runner_name``'s shipped COCO config,
+    DCNv2 towers with ``deformable``."""
+    cls, config = ONE_STAGE[runner_name]
+    cfg = cls.get_default_cfg()
+    cfg.merge_from_file(config)
+    cfg.MODEL.FCOS.INFERENCE_TH_TEST = 0.02
+    cfg.MODEL.FCOS.USE_DEFORMABLE = deformable
+    return cfg
+
+
+@torch.no_grad()
+def seed_offset_heads(model, seed: int) -> int:
+    """Every DFConv2d's ``offset`` conv to seeded non-zero weights (fan-in
+    scaled, times ``OFFSET_GAIN``); -> how many layers."""
+    gen = torch.Generator().manual_seed(seed)
+    n = 0
+    for m in model.modules():
+        if isinstance(m, DFConv2d):
+            w = m.offset.weight
+            w.copy_(torch.randn(w.shape, generator=gen) * OFFSET_GAIN
+                    / math.sqrt(w[0].numel()))
+            m.offset.bias.copy_(torch.randn(m.offset.bias.shape,
+                                            generator=gen))
+            n += 1
+    return n
+
+
+def offset_reach(model, canvas) -> dict:
+    """One forward of the first deformable layer on ``canvas``: the share of
+    its samples that fall between pixels and of those past the map's
+    border."""
+    layer = model.fcos_head.cls_tower.conv3
+    seen = {}
+
+    def keep_first(mod, inp, out):    # returns None: the output stays as is
+        seen.setdefault("om", out.float())
+
+    hook = layer.offset.register_forward_hook(keep_first)
+    with torch.inference_mode():
+        model.forward_base(canvas)
+    hook.remove()
+    om = seen["om"]                        # the first level, P3
+    _, _, h, w = om.shape
+    off = om[:, :2 * layer.k]
+    t = torch.arange(layer.k, device=om.device)
+    base_y = (torch.arange(h, device=om.device)[:, None]
+              + (t // 3 - 1)[:, None, None])
+    base_x = (torch.arange(w, device=om.device)[None, :]
+              + (t % 3 - 1)[:, None, None])
+    py, px = base_y + off[:, 0::2], base_x + off[:, 1::2]
+    frac = ((py != py.floor()) | (px != px.floor())).float().mean()
+    out = ((py < 0) | (py > h - 1) | (px < 0) | (px > w - 1)).float().mean()
+    return {"fractional": float(frac), "past_border": float(out),
+            "offset_abs_mean": float(off.abs().mean())}
+
+
+def serve_and_check(pred: SylphPredictor, label: str, card: str):
+    """Phase 4's main path for another predictor: register 3 classes at
+    EVAL_SHOT, answer 5 requests on the host path, the last at
+    INFERENCE_TH_TEST = 0 (K = 5000); each request's detections against
+    the same dense outputs decoded with the twin. -> (counts, the ``serve``
+    JSON line)."""
+    rng = np.random.RandomState(0)
+    shots = pred.cfg.MODEL.META_LEARN.EVAL_SHOT
+    images = [random_image(rng, h, w) for h, w in REQUEST_SIZES]
+    th = pred.decode_cfg.pre_nms_thresh
+
+    def set_thresh(full_k):
+        pred.decode_cfg = pred.decode_cfg._replace(
+            pre_nms_thresh=0.0 if full_k else th)
+
+    register(pred, rng, ["warm_up"], shots)        # cuDNN plans, the kernel
+    pred(images[0])
+    pred.bank = type(pred.bank)(pred.bank.capacity, device=pred.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts are read around this block alone
+    reset_counts()
+    reg_ms = register(pred, rng, ["class_a", "class_b", "class_c"], shots)
+    results, lat_ms = [], []
+    for i, img in enumerate(images):
+        set_thresh(i == len(images) - 1)
+        t0 = time.perf_counter()
+        results.append(pred(img))
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts(label)
+    # ---- end of the main path
+    peak = peak_memory_gb()
+    for i, (img, res) in enumerate(zip(images, results)):
+        n = len(res["scores"])
+        if not (np.isfinite(res["boxes"]).all()
+                and np.isfinite(res["scores"]).all()
+                and res["boxes"].shape == (n, 4)
+                and set(res["class_names"]) <= {"class_a", "class_b",
+                                                "class_c"}):
+            raise AssertionError(f"{label}: malformed detections")
+        if i == len(images) - 1 and n != pred.decode_cfg.post_nms_topk:
+            raise AssertionError(f"{label}: the INFERENCE_TH_TEST=0 request "
+                                 f"kept {n} detections")
+        set_thresh(i == len(images) - 1)
+        canvas, size, _ = pred.prepare(img)
+        out = pred.dense(canvas)
+        got = pred.decode(out, size, pred.bank.valid)
+        want = pred.decode(out, size, pred.bank.valid, nms_impl="reference")
+        check_detections_equal(got, want, f"{label} request {i}")
+        log(f"[{label}] request {img.shape[0]}x{img.shape[1]}: "
+            f"{lat_ms[i]:.1f} ms, {n} detections, equal to the twin")
+    set_thresh(False)
+    if counts[0] != len(images):
+        raise AssertionError(f"{label}: {counts[0]} NMS launches for "
+                             f"{len(images)} requests")
+    med = float(np.median(lat_ms))
+    line = {"serve": label, "batch": 1,
+            "canvas": list(pred.eval_canvas), "median_request_ms": med,
+            "request_ms": lat_ms, "images_per_s": 1e3 / med,
+            "registration_ms_per_class": reg_ms, "shots": shots,
+            "peak_memory_gb": peak, "card": card}
+    log(f"[{label}] registration {', '.join(f'{t:.1f}' for t in reg_ms)} ms "
+        f"a class ({shots} shots); median request {med:.1f} ms, peak "
+        f"{peak:.2f} GB; {counts[0]} NMS launches")
+    return counts, line
+
+
+def _finite_losses(what: str, runner) -> None:
+    for i, m in enumerate(runner.train_metrics):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{what} step {i}: non-finite loss {m}")
+
+
+def _moved(model, start):
+    return {k for k, v in model.state_dict().items()
+            if not torch.equal(v, start[k])}
+
+
+def phase_roi_encoder(work: str, card: str):
+    """Phase 17: the ROIEncoder's serving, meta-test and episodic training
+    at full width. -> ({path: counts}, the serve line, the train line,
+    the training's counts)."""
+    pred = SylphPredictor(cfg=variant_serving_cfg(ROI_ENCODER),
+                          runner_name=ROI_ENCODER)
+    serve_counts, serve_line = serve_and_check(pred, "roi_encoder_serve",
+                                               card)
+    serve_line["config"] = "Meta-FCOS-ROIEncoder/Meta-FCOS-finetune.yaml"
+    del pred
+    meta_counts, stats = phase_meta_test(work, ROI_ENCODER,
+                                         "roi_encoder_meta_test")
+    serve_line["meta_test"] = {
+        name: {"codegen_ms_per_class": 1e3 * st["codegen_s"] / st["classes"],
+               "query_images_per_s": st["query_images"] / st["query_s"]}
+        for name, st in stats.items()}
+
+    cfg = variant_train_cfg(ROI_ENCODER, 3)
+    runner = create_runner(ROI_ENCODER)
+    model = runner.build_model(cfg, init="train")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts are read around this block alone
+    reset_counts()
+    _, state = runner.do_train(cfg, model)
+    train_counts = read_counts("roi_encoder_train")
+    # ---- end of the main path
+    _finite_losses("roi_encoder_train", runner)
+    moved = _moved(model, start)
+    if not moved <= set(state.tx.names):
+        raise AssertionError("roi_encoder_train: frozen tensors moved")
+    if any(k.startswith(("backbone.", "fpn.")) for k in moved):
+        raise AssertionError("roi_encoder_train: the backbone moved")
+    for prefix in ("code_generator.encoder_layer0.self_attn.",
+                   "code_generator.tok_fc0.", "code_generator.weight_fc0.",
+                   "code_generator.ms_cam."):
+        if not any(k.startswith(prefix) for k in moved):
+            raise AssertionError(f"roi_encoder_train: {prefix} did not move")
+    e = cfg.SOLVER.IMS_PER_BATCH
+    imgs = e * (cfg.MODEL.META_LEARN.SHOT + cfg.MODEL.META_LEARN.QUERY_SHOT)
+    line = _train_line("roi_encoder_episodic", cfg, runner, 2, imgs, card,
+                       config="Meta-FCOS-ROIEncoder/Meta-FCOS-finetune.yaml")
+    line["dropout"] = cfg.MODEL.META_LEARN.CODE_GENERATOR \
+        .TRANSFORMER_ENCODER.DROPOUT
+    log(f"[roi-encoder-train] {e} episodes, GRAD_ACCUM {cfg.TPU.GRAD_ACCUM}, "
+        f"dropout {line['dropout']}: median step "
+        f"{line['median_step_ms']:.1f} ms, {line['images_per_s']:.1f} img/s, "
+        f"peak {line['peak_memory_gb']:.2f} GB; {len(moved)} tensors moved, "
+        f"backbone and FPN bit-identical")
+    check_resume(cfg, runner, state, work, label="roi-encoder-train")
+    return ({"roi_encoder_serve": serve_counts,
+             "roi_encoder_meta_test": meta_counts}, serve_line, line,
+            train_counts)
+
+
+def _record_plain_decode():
+    """Record every ``decode_proposals`` call of the plain evaluation;
+    -> (the calls, a function that undoes it)."""
+    recorded = []
+    decode = runner_mod.decode_proposals
+
+    def recording(*args, **kwargs):
+        det = decode(*args, **kwargs)
+        recorded.append((args, kwargs, det))
+        return det
+
+    runner_mod.decode_proposals = recording
+
+    def undo():
+        runner_mod.decode_proposals = decode
+    return recorded, undo
+
+
+def tfa_plain_test(runner, cfg, model, label: str):
+    """The plain ``do_test`` of a TFA model on coco_meta_val_all as a
+    main-path window: one NMS launch a query batch, each equal to the twin,
+    a complete AP dict. -> counts."""
+    cfg = cfg.clone()
+    cfg.DATASETS.TEST = ["coco_meta_val_all"]
+    cfg.TPU.EVAL_BATCH = 8
+    cfg.MODEL.FCOS.INFERENCE_TH_TEST = 0.02
+    recorded, undo = _record_plain_decode()
+    try:
+        # ---- the main path: counts are read around this block alone
+        reset_counts()
+        t0 = time.perf_counter()
+        results = runner.do_test(cfg, model)
+        wall = time.perf_counter() - t0
+        counts = read_counts(label)
+        # ---- end of the main path
+    finally:
+        undo()
+    name = "coco_meta_val_all"
+    data = DatasetCatalog.get(name)
+    n_query = len(data[-1])
+    batches = -(-n_query // cfg.TPU.EVAL_BATCH)
+    check_ap_dict(name, results[name]["bbox"],
+                  data["metadata"]["thing_classes"], repeated=False)
+    if counts[0] != batches or len(recorded) != batches:
+        raise AssertionError(f"{label}: {counts[0]} NMS launches, "
+                             f"{len(recorded)} decodes for {batches} batches")
+    for i, (args, kwargs, det) in enumerate(recorded):
+        want = runner_mod.decode_proposals(*args, **dict(
+            kwargs, nms_impl="reference"))
+        check_detections_equal(det, want, f"{label} batch {i}")
+    log(f"[{label}] plain do_test on {name}: {n_query} images in {batches} "
+        f"batches, {wall:.2f} s; AP {results[name]['bbox']['AP']:.4f}; each "
+        f"of the {counts[0]} NMS launches equal to the twin")
+    return counts
+
+
+HEAD_BRANCH = ("fcos_head.cls_tower.", "fcos_head.bbox_tower.",
+               "fcos_head.bbox_pred.", "fcos_head.ctrness.",
+               "fcos_head.iou_overlap.")
+
+
+def _tfa_train(what: str, cfg, card: str, config: str):
+    """``do_train`` of a TFA config as a main-path window: no NMS launch,
+    finite losses, the backbone, FPN, cls tower and bbox branch
+    bit-identical. -> (runner, model, counts, moved, train line)."""
+    runner = create_runner(TFA)
+    model = runner.build_model(cfg, init="train")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts are read around this block alone
+    reset_counts()
+    _, state = runner.do_train(cfg, model)
+    counts = read_counts(what)
+    # ---- end of the main path
+    _finite_losses(what, runner)
+    moved = _moved(model, start)
+    if not moved <= set(state.tx.names):
+        raise AssertionError(f"{what}: frozen tensors moved")
+    if any(k.startswith(("backbone.", "fpn.") + HEAD_BRANCH) for k in moved):
+        raise AssertionError(f"{what}: a frozen part moved: {sorted(moved)}")
+    line = _train_line(what, cfg, runner, cfg.SOLVER.MAX_ITER - 1,
+                       cfg.SOLVER.IMS_PER_BATCH, card, config=config)
+    log(f"[{what}] batch {cfg.SOLVER.IMS_PER_BATCH}: median step "
+        f"{line['median_step_ms']:.1f} ms, {line['images_per_s']:.1f} img/s, "
+        f"peak {line['peak_memory_gb']:.2f} GB; moved {sorted(moved)}; "
+        "backbone, FPN, cls tower and bbox branch bit-identical")
+    return runner, model, counts, moved, line
+
+
+def phase_tfa(work: str, card: str):
+    """Phase 18: the TFA one-stage finetune from a seeded base-class model
+    saved as a port checkpoint: the surgery, training and the plain
+    evaluation, then the cosine head. -> ({path: counts}, [train lines],
+    the training's counts)."""
+    coco_tree(work)
+    base_split = "coco_pretrain_train_base"
+    base_ids = DatasetCatalog.get(base_split)["metadata"][
+        "thing_dataset_id_to_contiguous_id"]
+    cfg = variant_train_cfg(TFA, 3)
+    base_cfg = cfg.clone()
+    base_cfg.MODEL.FCOS.NUM_CLASSES = len(base_ids)
+    base = build_model_from_cfg(base_cfg, init="train", seed=5)
+    with torch.no_grad():   # base rows that differ from a fresh init's
+        base.fcos_head.cls_logits.weight.normal_(
+            0.0, 0.01, generator=torch.Generator(base.fcos_head.cls_logits
+                                                 .weight.device)
+            .manual_seed(6))
+    path = os.path.join(work, "tfa_base.pt")
+    torch.save({"step": 0, "model": {k: v.cpu() for k, v in
+                                     base.state_dict().items()}}, path)
+    base_w = base.fcos_head.cls_logits.weight.detach().cpu()
+    base_b = base.fcos_head.cls_logits.bias.detach().cpu()
+    del base
+    cfg.MODEL.WEIGHTS = path
+    cfg.DATASETS.BASE_CLASSES_SPLIT = base_split
+    cur_ids = DatasetCatalog.get(cfg.DATASETS.TRAIN[0])["metadata"][
+        "thing_dataset_id_to_contiguous_id"]
+
+    runner, model, train_counts, moved, line = _tfa_train(
+        "tfa_train", cfg, card, "tfa-finetune.yaml")
+    # the surgery, read back from a fresh build
+    built = runner.build_model(cfg, init="train").fcos_head.cls_logits
+    rows = 0
+    for did, bi in base_ids.items():
+        if did in cur_ids:
+            ci = cur_ids[did]
+            if not (torch.equal(built.weight[ci].cpu(), base_w[bi])
+                    and torch.equal(built.bias[ci].cpu(), base_b[bi])):
+                raise AssertionError(f"surgery: class {did} row {ci}")
+            rows += 1
+    if not rows or not any(k.startswith("fcos_head.cls_logits.")
+                           for k in moved):
+        raise AssertionError(f"surgery rows {rows}; cls_logits moved: "
+                             f"{sorted(moved)}")
+    log(f"[tfa] surgery: {rows} base rows equal the checkpoint's at the "
+        "all-classes columns")
+    counts = {"tfa_test": tfa_plain_test(runner, cfg, model, "tfa_test")}
+    del model
+
+    ccfg = variant_train_cfg(TFA, 2, cosine=True)
+    ccfg.MODEL.WEIGHTS = path
+    # the base checkpoint has a cls_logits head, which the cosine head
+    # cannot take: the surgery is off (the JAX package fails there)
+    ccfg.MODEL.TFA.USE_PRETRAINED_BASE_CLS_LOGITS = False
+    runner, model, cos_counts, moved, cos_line = _tfa_train(
+        "tfa_cosine_train", ccfg, card, "tfa-finetune.yaml (cosine head)")
+    head_moved = {k for k in moved if k.startswith("fcos_head.")}
+    if not head_moved or not all(k.startswith("fcos_head.cosine_")
+                                 for k in head_moved):
+        raise AssertionError(f"tfa_cosine_train: head tensors moved "
+                             f"{sorted(head_moved)}")
+    counts["tfa_cosine_test"] = tfa_plain_test(runner, ccfg, model,
+                                               "tfa_cosine_test")
+    return (counts, [line, cos_line],
+            (train_counts[0] + cos_counts[0], None))
+
+
+def phase_dcn(work: str, card: str):
+    """Phase 19: serving with DCNv2 towers, the offset heads at seeded
+    non-zero weights, then one pretraining step. -> (counts, the serve
+    line, the train line)."""
+    pred = SylphPredictor(cfg=variant_serving_cfg(deformable=True))
+    n = seed_offset_heads(pred.model, 7)
+    canvas, _, _ = pred.prepare(random_image(np.random.RandomState(1), 800,
+                                             1216))
+    reach = offset_reach(pred.model, canvas)
+    if reach["fractional"] < 0.9 or reach["past_border"] <= 0:
+        raise AssertionError(f"dcn offsets: {reach}")
+    log(f"[dcn] {n} deformable layers; at P3 {100 * reach['fractional']:.1f}"
+        f"% of the samples fall between pixels, "
+        f"{100 * reach['past_border']:.2f}% past the border (mean |offset| "
+        f"{reach['offset_abs_mean']:.2f} px)")
+    counts, line = serve_and_check(pred, "dcn_serve", card)
+    line.update(config="Meta-FCOS-finetune.yaml + USE_DEFORMABLE",
+                offsets=reach)
+    del pred
+
+    coco_tree(work)
+    cfg = train_cfg("pretrain", 1)
+    cfg.SOLVER.IMS_PER_BATCH, cfg.TPU.GRAD_ACCUM = 16, 2   # micro-batches of 8
+    cfg.MODEL.FCOS.USE_DEFORMABLE = True
+    runner = MetaFCOSRunner()
+    model = runner.build_model(cfg, init="train")
+    seed_offset_heads(model, 8)
+    state, _, _ = runner._common_train_setup(cfg, model)
+    step = runner.make_train_step(cfg, model)
+    batch = _first_batch(runner._pretrain_loader(cfg))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    losses = {k: float(v) for k, v in losses.items()}
+    grads = [m.offset.weight.grad for m in model.modules()
+             if isinstance(m, DFConv2d)]
+    if not (all(np.isfinite(v) for v in losses.values())
+            and all(g is not None and bool(torch.isfinite(g).all())
+                    and bool(g.abs().sum() > 0) for g in grads)):
+        raise AssertionError(f"dcn pretrain step: losses {losses}, offset "
+                             "gradients not finite and non-zero")
+    tline = {"train": "dcn_pretrain_step", "config":
+             "Meta-FCOS-pretrain.yaml + USE_DEFORMABLE",
+             "batch": cfg.SOLVER.IMS_PER_BATCH,
+             "grad_accum": cfg.TPU.GRAD_ACCUM, "counted_steps": 1,
+             "median_step_ms": ms, "images_per_s": cfg.SOLVER.IMS_PER_BATCH
+             / (ms / 1e3), "peak_memory_gb": peak_memory_gb(),
+             "losses": [losses], "card": card}
+    log(f"[dcn-train] one pretrain step at batch {cfg.SOLVER.IMS_PER_BATCH} "
+        f"({ms:.1f} ms, the first: cuDNN plans included): losses finite, "
+        f"{len(grads)} offset heads with finite, non-zero gradients")
+    return {"dcn_serve": counts}, line, tline
+
+
+def _small_variant_cfg(runner_name: str, **opts):
+    """Phase 5's card-vs-CPU setting (fp32, R-50 at a 256x256 canvas) for a
+    variant."""
+    cfg = variant_serving_cfg(runner_name, opts.pop("deformable", False))
+    cfg.merge_from_list([x for kv in opts.items() for x in kv])
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.EVAL_CANVAS = [256, 256]
+    cfg.TPU.SUPPORT_CANVAS = [128, 128]
+    return cfg
+
+
+def phase_variants_card_vs_cpu(devices=("cuda", "cpu")) -> None:
+    """Phase 20 (fp32, TF32 off): the ROIEncoder's codes at eval (1e-5), the
+    cosine head's and the DCN towers' dense outputs (phase 5's rtol 1e-3 /
+    atol 5e-3), two ROIEncoder episodic steps at DROPOUT 0.0 (phase 7's
+    limits)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(12)
+    sup = torch.as_tensor(rng.randint(0, 256, (6, 128, 128, 3)),
+                          dtype=torch.uint8)
+    boxes = torch.tensor([[8, 10, 90, 100], [20, 4, 120, 60],
+                          [0, 0, 128, 128]] * 2, dtype=torch.float32)
+    image = torch.as_tensor(rng.randint(0, 256, (1, 256, 256, 3)),
+                            dtype=torch.uint8)
+    outs = {}
+    for dev in devices:
+        roi = build_model_from_cfg(_small_variant_cfg(ROI_ENCODER),
+                                   device=dev)
+        with torch.inference_mode():
+            codes = roi.forward_class_code(
+                sup.to(dev), boxes.to(dev),
+                torch.ones(6, dtype=torch.bool, device=dev), 3)
+        del roi
+        dense = []
+        for runner_name, opts in ((TFA, {"MODEL.FCOS.L2_NORM_CLS_WEIGHT":
+                                         True}),
+                                  ("MetaFCOSRunner", {"deformable": True})):
+            model = build_model_from_cfg(
+                _small_variant_cfg(runner_name, **opts), device=dev)
+            seed_offset_heads(model, 9)
+            with torch.inference_mode():
+                out = model.forward_base(image.to(dev))
+            dense.append({k: getattr(out, k).cpu() for k in
+                          ("logits", "reg", "ctrness", "iou")})
+            del model
+        outs[dev] = ({k: v.cpu() for k, v in codes.items()}, dense)
+    (cg, dg), (cc, dc) = outs[devices[0]], outs[devices[1]]
+    for k in ("cls_conv", "cls_bias"):
+        np.testing.assert_allclose(cg[k].numpy(), cc[k].numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"ROIEncoder {k}")
+    worst = max(float((cg[k] - cc[k]).abs().max()) for k in cg)
+    for what, a, b in zip(("cosine head", "DCN towers"), dg, dc):
+        for k in a:
+            np.testing.assert_allclose(a[k].numpy(), b[k].numpy(),
+                                       rtol=1e-3, atol=5e-3,
+                                       err_msg=f"{what} {k}")
+    log(f"[variants-card-vs-cpu] fp32: ROIEncoder codes within {worst:.2e} "
+        "(1e-5), the cosine head's and the DCN towers' dense outputs within "
+        "rtol 1e-3 / atol 5e-3")
+    cfg = _train_small_cfg(True)
+    cfg.MODEL.META_LEARN.CODE_GENERATOR.NAME = "ROIEncoder"
+    cfg.MODEL.META_LEARN.CODE_GENERATOR.TRANSFORMER_ENCODER.DROPOUT = 0.0
+    phase_train_card_vs_cpu(devices, cases=[("roi_encoder episodic", cfg)])
+
+
 def main() -> int:
     os.environ.pop("SYLPH_TEST_MODE", None)  # it would cut the query set
     if not torch.cuda.is_available():
@@ -1788,6 +2327,13 @@ def main() -> int:
         rpre_counts, rpre_line, rpre_case = phase_rcnn_train_pretrain(card)
         tfa_counts, tfa_line = phase_rcnn_train_tfa(card)
         phase_rcnn_train_card_vs_cpu()
+        t0 = time.perf_counter()
+        roi_counts, roi_serve, roi_train, roi_train_counts = \
+            phase_roi_encoder(work, card)
+        tfa1_counts, tfa1_lines, tfa1_train_counts = phase_tfa(work, card)
+        dcn_counts, dcn_serve, dcn_train = phase_dcn(work, card)
+        phase_variants_card_vs_cpu()
+        log(f"[time] phases 17-20: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[time] every phase, the builds included: "
@@ -1797,12 +2343,14 @@ def main() -> int:
     # every main-path window's reading: (launches, launches by route)
     counts = {"serve": serve_counts, "meta_test": meta_counts, **rcnn_counts,
               "rcnn_plain": plain_counts, "rcnn_train_episodic": ep_counts,
-              "rcnn_train_pretrain": rpre_counts, "rcnn_train_tfa": tfa_counts}
+              "rcnn_train_pretrain": rpre_counts, "rcnn_train_tfa": tfa_counts,
+              **roi_counts, **tfa1_counts, **dcn_counts}
     by_path = {path: n for path, (n, _) in counts.items()}
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the NMS kernel: "
                              f"{by_path}")
-    train_launches = train_counts[0] + pre_counts[0]
+    train_launches = (train_counts[0] + pre_counts[0] + roi_train_counts[0]
+                      + tfa1_train_counts[0])
     if train_launches:
         raise AssertionError("one-stage training launched the NMS kernel")
     by_route = {r: sum(routes[r] for _, routes in counts.values())
@@ -1824,7 +2372,8 @@ def main() -> int:
     rcnn_line["card"] = card
     print(json.dumps(episodic_line), flush=True)
     print(json.dumps(pretrain_line), flush=True)
-    for line in (ep_line, rpre_line, tfa_line):
+    for line in (ep_line, rpre_line, tfa_line, roi_serve, roi_train,
+                 *tfa1_lines, dcn_serve, dcn_train):
         print(json.dumps(line), flush=True)
     print(json.dumps(rcnn_line), flush=True)
     print(card, flush=True)

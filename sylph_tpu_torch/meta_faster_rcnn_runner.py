@@ -31,6 +31,8 @@ from .runner import (MetaFCOSRunner, _codegen_kwargs, _mapper,
                      _plain_eval_loop, init_random_weights,
                      init_train_weights, resolve_device)
 from .train.checkpoint import load_params_any
+from .utils.convert_d2 import (convert_detectron2_checkpoint,
+                               load_torch_state_dict)
 from .train.steps import (DrawsFactory, make_rcnn_episodic_train_step,
                           make_rcnn_pretrain_train_step)
 from .utils.tb_writer import write_eval_results_tb
@@ -310,7 +312,8 @@ class TFAFasterRCNNRunner(MetaFasterRCNNRunner):
     def _preload_roi_cls_rows(self, cfg, state: Dict[str, torch.Tensor]
                               ) -> Dict[str, torch.Tensor]:
         """TFA surgery for the two-stage head: copy the base detector's
-        classifier rows (and its background row) from MODEL.WEIGHTS into
+        classifier rows (and its background row) from MODEL.WEIGHTS (a
+        flat ``.npz`` or a detectron2 ``.pth``/``.pkl``) into
         the all-classes head of ``state`` (``box_head.cosine_weight``, or
         ``box_head.cls_score.weight``/``bias``) at the positions the
         current dataset gives those classes. Linear -> cosine is exact up
@@ -320,18 +323,16 @@ class TFAFasterRCNNRunner(MetaFasterRCNNRunner):
         log = logging.getLogger(__name__)
         path = cfg.MODEL.WEIGHTS
         if path.endswith((".pth", ".pkl")):
-            raise NotImplementedError(
-                "converting detectron2 .pth/.pkl checkpoints is not ported "
-                "yet (ROADMAP item 19); convert with the JAX package and "
-                "save its params as a flat .npz (tools/convert_checkpoint.py)")
-        try:
-            loaded = load_params_any(path)
-        except Exception as e:  # noqa: BLE001 — surfaced below
-            log.warning(
-                "[TFA-RCNN] cls surgery REQUESTED but MODEL.WEIGHTS=%r could "
-                "not be read (%s) — surgery SKIPPED, base rows stay at their "
-                "init", path, e)
-            return state
+            loaded = convert_detectron2_checkpoint(load_torch_state_dict(path))
+        else:
+            try:
+                loaded = load_params_any(path)
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                log.warning(
+                    "[TFA-RCNN] cls surgery REQUESTED but MODEL.WEIGHTS=%r "
+                    "could not be read (%s) — surgery SKIPPED, base rows stay "
+                    "at their init", path, e)
+                return state
         base_rows, base_bias = _base_classifier_rows(loaded)
         if base_rows is None:
             log.warning(

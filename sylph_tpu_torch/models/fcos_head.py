@@ -8,7 +8,16 @@ sylph_tpu/models/fcos_head.py).
   * conditional classification: with 1x1 class codes the conditional conv is
     one matmul of the flattened cls tower over the code bank plus the bias,
     with operands in the compute dtype and float32 accumulation and output
-    (the JAX package's ``preferred_element_type=float32``).
+    (the JAX package's ``preferred_element_type=float32``);
+  * the TFA cosine classifier (MODEL.FCOS.L2_NORM_CLS_WEIGHT) in place of
+    ``cls_logits``: each row of ``cosine_weight`` is group-normalized (32
+    groups, eps 1e-5), scaled by ``cosine_gn_scale`` plus ``cosine_gn_bias``
+    and L2-normalized; the logits are ``exp(cosine_scale) * (tower . w) +
+    cosine_bias``. As under flax ``nn.compact``, where ``cls_logits`` is
+    declared but never called on this path, the head then has no
+    ``cls_logits`` parameters;
+  * MODEL.FCOS.USE_DEFORMABLE: the last conv of every tower is a DCNv2
+    ``DFConv2d`` (``ops/deform_conv.py``).
 
 Outputs are flattened level-major, then row-major over (h, w), exactly as
 the JAX package's NHWC ``reshape(b, -1, C)`` orders them.
@@ -22,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.deform_conv import DFConv2d
 from .layers import Conv2d, GroupNorm, Scale, flatten_nchw
 
 
@@ -33,16 +43,21 @@ class HeadOutputs(NamedTuple):
 
 
 class _Tower(nn.Module):
-    """num_convs x [conv3x3(bias), GN(32), relu]; modules ``conv{i}``/``gn{i}``."""
+    """num_convs x [conv3x3(bias), GN(32), relu]; modules ``conv{i}``/``gn{i}``.
+    With ``use_deformable`` the last conv is a ``DFConv2d``."""
 
-    def __init__(self, num_convs: int, channels: int = 256, norm: str = "GN"):
+    def __init__(self, num_convs: int, channels: int = 256, norm: str = "GN",
+                 use_deformable: bool = False):
         super().__init__()
         if norm not in ("GN", "", "none", None):
             raise NotImplementedError(f"FCOS norm {norm}")
         self.num_convs = num_convs
         self.use_gn = norm == "GN"
         for i in range(num_convs):
-            self.add_module(f"conv{i}", Conv2d(channels, channels, 3))
+            last = i == num_convs - 1
+            self.add_module(f"conv{i}", DFConv2d(channels, channels)
+                            if use_deformable and last
+                            else Conv2d(channels, channels, 3))
             if self.use_gn:
                 self.add_module(f"gn{i}", GroupNorm(32, channels))
 
@@ -69,20 +84,21 @@ class FCOSHead(nn.Module):
                  use_deformable: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if l2_norm_cls_weight:
-            raise NotImplementedError(
-                "the TFA cosine classifier (MODEL.FCOS.L2_NORM_CLS_WEIGHT) "
-                "is not ported yet")
-        if use_deformable:
-            raise NotImplementedError(
-                "DCNv2 towers (MODEL.FCOS.USE_DEFORMABLE) are not ported yet")
         self.compute_dtype = compute_dtype
         c = in_channels
-        self.share_tower = (_Tower(num_share_convs, c, norm)
+        self.share_tower = (_Tower(num_share_convs, c, norm, use_deformable)
                             if num_share_convs else None)
-        self.cls_tower = _Tower(num_cls_convs, c, norm)
-        self.bbox_tower = _Tower(num_box_convs, c, norm)
-        self.cls_logits = Conv2d(c, num_classes, cls_kernel_size)
+        self.cls_tower = _Tower(num_cls_convs, c, norm, use_deformable)
+        self.bbox_tower = _Tower(num_box_convs, c, norm, use_deformable)
+        self.l2_norm_cls_weight = l2_norm_cls_weight
+        if l2_norm_cls_weight:
+            self.cosine_weight = nn.Parameter(torch.empty(num_classes, c))
+            self.cosine_bias = nn.Parameter(torch.empty(num_classes))
+            self.cosine_scale = nn.Parameter(torch.empty(()))
+            self.cosine_gn_scale = nn.Parameter(torch.empty(c))
+            self.cosine_gn_bias = nn.Parameter(torch.empty(c))
+        else:
+            self.cls_logits = Conv2d(c, num_classes, cls_kernel_size)
         self.bbox_pred = Conv2d(c, 4, 3)
         self.ctrness = Conv2d(c, 1, 3)
         self.iou_overlap = Conv2d(c, 1, 3)
@@ -102,6 +118,8 @@ class FCOSHead(nn.Module):
             code_w = code_w.reshape(code_w.shape[0], -1) \
                 .to(self.compute_dtype).float()
             code_b = class_code["cls_bias"].reshape(-1).float()    # (N,)
+        elif self.l2_norm_cls_weight:
+            cos_w = self.cosine_rows().to(self.compute_dtype).float()
 
         logits_l, reg_l, ctr_l, iou_l = [], [], [], []
         for li, feat in enumerate(features):
@@ -114,6 +132,9 @@ class FCOSHead(nn.Module):
             if class_code is not None:
                 logit = torch.matmul(flatten_nchw(ct).float(), code_w.t()) \
                     + code_b
+            elif self.l2_norm_cls_weight:
+                logit = torch.exp(self.cosine_scale) * torch.matmul(
+                    flatten_nchw(ct).float(), cos_w.t()) + self.cosine_bias
             else:
                 logit = flatten_nchw(self.cls_logits(ct).float())
 
@@ -134,3 +155,19 @@ class FCOSHead(nn.Module):
             ctrness=torch.cat(ctr_l, dim=1),
             iou=torch.cat(iou_l, dim=1),
         )
+
+    def cosine_rows(self) -> torch.Tensor:
+        """The cosine classifier's (N, C) unit rows: GroupNorm over each
+        weight row (32 groups when C allows, eps 1e-5, float32), the affine,
+        then L2 with a 1e-12 floor (reference head_utils.py:188-194)."""
+        w = self.cosine_weight.float()
+        n, c = w.shape
+        groups = 32 if c % 32 == 0 else 1
+        wg = w.reshape(n, groups, -1)
+        mu = wg.mean(-1, keepdim=True)
+        var = wg.var(-1, unbiased=False, keepdim=True)
+        w = ((wg - mu) / torch.sqrt(var + 1e-5)).reshape(n, c)
+        w = w * self.cosine_gn_scale + self.cosine_gn_bias
+        return w / torch.clamp(torch.linalg.vector_norm(w, dim=-1,
+                                                        keepdim=True),
+                               min=1e-12)

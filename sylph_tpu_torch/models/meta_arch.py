@@ -7,7 +7,8 @@ sylph_tpu/models/meta_arch.py).
                               conditioned query head, one training episode
                               batch;
   * ``forward_class_code``  — support set -> raw class codes;
-  * ``normalize_code``      — post-hoc code normalization;
+  * ``normalize_code``      — post-hoc code normalization (refused for the
+                              ROIEncoder, whose codes are final);
   * ``forward_instances``   — conditioned inference with a code bank.
 
 Input contract as in the JAX package: images are float32 (or uint8)
@@ -34,6 +35,7 @@ from .code_generator import CodeGeneratorHead
 from .fcos_head import FCOSHead, HeadOutputs
 from .fpn import FPN
 from .resnet import ResNet, resnet_feature_channels
+from .roi_encoder import ROIEncoder
 
 
 class MetaOneStageDetector(nn.Module):
@@ -89,7 +91,9 @@ class MetaOneStageDetector(nn.Module):
         elif code_generator_name in ("none", None, ""):
             self.code_generator = None
         elif code_generator_name == "ROIEncoder":
-            raise NotImplementedError("the ROIEncoder is not ported yet")
+            kwargs.pop("prior_prob", None)  # its own focal prior, as in JAX
+            self.code_generator = ROIEncoder(
+                feature_channels=fpn_out_channels, **kwargs)
         else:
             raise NotImplementedError(code_generator_name)
         self.pixel_mean = tuple(float(m) for m in pixel_mean)
@@ -125,29 +129,45 @@ class MetaOneStageDetector(nn.Module):
     def forward_base(self, images: torch.Tensor) -> HeadOutputs:
         return self.fcos_head(self.extract_features(images))
 
+    def _codes(self, feats, boxes, box_valid, num_shots: int, training: bool,
+               generator: Optional[torch.Generator]):
+        kw = ({"generator": generator}
+              if isinstance(self.code_generator, ROIEncoder) else {})
+        return self.code_generator(feats, boxes, box_valid,
+                                   num_shots=num_shots, training=training,
+                                   **kw)
+
     def forward_class_code(self, support_images: torch.Tensor,
                            support_boxes: torch.Tensor,
                            support_box_valid: torch.Tensor, num_shots: int,
-                           training: bool = False) -> Dict[str, torch.Tensor]:
-        """Support set (S images, one box each) -> codes (S // shots rows)."""
+                           training: bool = False,
+                           generator: Optional[torch.Generator] = None
+                           ) -> Dict[str, torch.Tensor]:
+        """Support set (S images, one box each) -> codes (S // shots rows).
+        ``generator``: the ROIEncoder's dropout draws when ``training``."""
         feats = self.extract_features(support_images)
-        return self.code_generator(feats, support_boxes, support_box_valid,
-                                   num_shots=num_shots, training=training)
+        return self._codes(feats, support_boxes, support_box_valid,
+                           num_shots, training, generator)
 
     def normalize_code(self, codes: Dict[str, torch.Tensor]
                        ) -> Dict[str, torch.Tensor]:
+        if isinstance(self.code_generator, ROIEncoder):
+            raise ValueError("the ROIEncoder emits final codes; they take no "
+                             "normalize_code")
         return self.code_generator.normalize(codes)
 
     def forward_episodic_train(
         self, support_images: torch.Tensor, support_boxes: torch.Tensor,
         support_box_valid: torch.Tensor, query_images: torch.Tensor,
-        num_shots: int) -> Tuple[HeadOutputs, Dict[str, torch.Tensor]]:
+        num_shots: int, generator: Optional[torch.Generator] = None
+    ) -> Tuple[HeadOutputs, Dict[str, torch.Tensor]]:
         """support_images (E*num_shots, H, W, 3), query_images (E*Q, H', W',
         3) -> the conditioned query head outputs (E logit channels) and the
-        normalized codes (for the distillation and snnl losses)."""
+        normalized codes (for the distillation and snnl losses).
+        ``generator``: the ROIEncoder's dropout draws."""
         sfeats = self.extract_features(support_images)
-        codes = self.code_generator(sfeats, support_boxes, support_box_valid,
-                                    num_shots=num_shots, training=True)
+        codes = self._codes(sfeats, support_boxes, support_box_valid,
+                            num_shots, True, generator)
         qfeats = self.extract_features(query_images)
         return self.fcos_head(qfeats, class_code=codes), codes
 

@@ -178,14 +178,19 @@ class SampleDraws:
         self.draw_device = torch.device(draw_device or device)
         self.gen = torch.Generator(self.draw_device).manual_seed(seed)
 
+    @staticmethod
+    def step_seed(seed: int, iteration: int, group: int) -> int:
+        """The generator seed of micro-group ``group`` at ``iteration``."""
+        s = np.random.SeedSequence([seed, iteration, group]).generate_state(
+            1, np.uint64)[0]
+        return int(s) & (2 ** 63 - 1)
+
     @classmethod
     def for_step(cls, seed: int, iteration: int, group: int, device,
                  draw_device=None) -> "SampleDraws":
         """The source of micro-group ``group`` at ``iteration``: a resumed run
         draws what an uninterrupted one draws."""
-        s = np.random.SeedSequence([seed, iteration, group]).generate_state(
-            1, np.uint64)[0]
-        return cls(int(s) & (2 ** 63 - 1), device, draw_device)
+        return cls(cls.step_seed(seed, iteration, group), device, draw_device)
 
     def _uniform(self, shape) -> torch.Tensor:
         return torch.rand(shape, generator=self.gen,

@@ -13,11 +13,15 @@ sylph_tpu/predictor.py).
     (``ops/image_ops.py``) when the frame fits the eval canvas;
   * ``detect_base(image)`` runs the plain base detector.
 
-The model is built by ``MetaFCOSRunner.build_model``: ``weight_path`` sets
-MODEL.WEIGHTS, which may name a flat ``.npz`` of flax params (the JAX
-package's layout) or one of the port's checkpoints. The code bank is preallocated on the device with ``TPU.MAX_CLASSES`` rows
-and a ``valid`` mask; registering a class writes one row in place and
-rebuilds nothing.
+The model is built by the one-stage runner ``runner_name`` names
+(``MetaFCOSRunner``, ``MetaFCOSROIEncoderRunner`` or
+``TFAFewShotDetectionRunner``, through ``create_runner``): ``weight_path``
+sets MODEL.WEIGHTS, which may name a flat ``.npz`` of flax params (the JAX
+package's layout), one of the port's checkpoints or a detectron2
+``.pth``/``.pkl``. The code bank is preallocated on the device with
+``TPU.MAX_CLASSES`` rows and a ``valid`` mask; registering a class writes one
+row in place and rebuilds nothing. The ROIEncoder's codes are final and are
+never normalized.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from .models.fcos_head import HeadOutputs
 from .ops.decode import decode_proposals
 from .ops.image_ops import resize_shortest_edge_device
 from .ops.locations import build_location_grid
-from .runner import MetaFCOSRunner, _decode_cfg, _mapper, resolve_device
+from .runner import _decode_cfg, _mapper, create_runner, resolve_device
 from .structures import Detections
 
 
@@ -80,11 +84,8 @@ class SylphPredictor:
                  test_dataset_names: Sequence[str] = (),
                  cfg=None, model=None, max_classes: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda"):
-        if runner_name != "MetaFCOSRunner":
-            raise NotImplementedError(f"runner {runner_name} is not ported "
-                                      "yet")
         self.device = resolve_device(device)
-        runner = MetaFCOSRunner(device=self.device)
+        runner = create_runner(runner_name, device=self.device)
         if cfg is None:
             cfg = runner.get_default_cfg()
             if config_file:
@@ -96,7 +97,6 @@ class SylphPredictor:
             cfg.MODEL.WEIGHTS = weight_path
         self.cfg = cfg
         if model is None:
-            # MODEL.WEIGHTS: a flat .npz of flax params or a port checkpoint
             model = runner.build_model(cfg)
         self.model = model.to(self.device).eval()
 
@@ -147,8 +147,9 @@ class SylphPredictor:
     def class_code(self, support_images: Sequence[np.ndarray],
                    support_boxes: Sequence[np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
-        """Normalized code (1 row) of one class from K support crops,
-        each resized, cropped and padded to TPU.SUPPORT_CANVAS."""
+        """The bank's code (1 row) of one class from K support crops,
+        each resized, cropped and padded to TPU.SUPPORT_CANVAS: normalized,
+        or as the ROIEncoder emits it."""
         sc = tuple(self.cfg.TPU.SUPPORT_CANVAS)
         imgs, boxes = [], []
         for img, box in zip(support_images, support_boxes):
@@ -165,8 +166,10 @@ class SylphPredictor:
         raw = self.model.forward_class_code(
             imgs, boxes, torch.ones((k,), dtype=torch.bool,
                                     device=self.device), k, False)
-        return self.model.normalize_code(
-            {"cls_conv": raw["cls_conv"], "cls_bias": raw["cls_bias"]})
+        code = {"cls_conv": raw["cls_conv"], "cls_bias": raw["cls_bias"]}
+        if self.model.code_generator_name == "ROIEncoder":
+            return code
+        return self.model.normalize_code(code)
 
     def register_class(self, name: str, support_images: List[np.ndarray],
                        support_boxes: List[np.ndarray]) -> int:

@@ -3,8 +3,11 @@ sylph_tpu/runner/meta_fcos_runner.py): ``build_model_from_cfg``,
 ``_codegen_kwargs``, ``_decode_cfg``, ``_freeze_cfg``, ``_loss_cfg``,
 ``_mapper``, ``MetaFCOSRunner`` (``get_default_cfg``, ``build_model`` with
 MODEL.WEIGHTS loading, ``do_train`` in both modes, ``get_evaluator``,
-``do_test``) and ``create_runner`` (which also builds the two-stage runners
-of ``meta_faster_rcnn_runner.py``).
+``do_test``), its variants ``MetaFCOSROIEncoderRunner`` (the ROIEncoder code
+generator) and ``TFAFewShotDetectionRunner`` (the TFA finetune through the
+plain path, with the base-class ``cls_logits`` surgery) and
+``create_runner`` (which also builds the two-stage runners of
+``meta_faster_rcnn_runner.py``).
 
 The repo ships no checkpoint, so weights start from an explicit
 ``torch.Generator`` seed in one of two ways:
@@ -15,11 +18,13 @@ The repo ships no checkpoint, so weights start from an explicit
     initializers' distributions (lecun-normal backbone and FPN, normal(0.01)
     heads, the focal prior on ``cls_logits``, unit norms and scales).
 MODEL.WEIGHTS overlays a flat ``.npz`` of flax params (the JAX package's
-layout) or one of the port's own checkpoints.
+layout), one of the port's own checkpoints, or a detectron2 ``.pth`` /
+``.pkl`` file (``utils/convert_d2.py``).
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import os
 import time
@@ -30,7 +35,7 @@ import torch
 import torch.nn as nn
 
 from .config import CfgNode, get_default_cfg
-from .data.catalog import DatasetCatalog
+from .data.catalog import DatasetCatalog, MetadataCatalog
 from .data.loader import (_POOL, build_episodic_train_loader,
                           build_pretrain_loader)
 from .data.mapper import EpisodicMapper
@@ -38,10 +43,13 @@ from .data.meta_dataset import MetaDataset
 from .evaluation.evaluators import (AREvaluator, COCOMetaEvaluator,
                                     COCOOWDEvaluator, FewshotLVISEvaluator)
 from .evaluation.postprocess import detections_to_coco_results
+from .models.fcos_head import FCOSHead
 from .models.layers import Conv2d, GroupNorm, Scale
 from .models.meta_arch import MetaOneStageDetector
 from .models.rcnn import ROIBoxHead
 from .models.resnet import FrozenBatchNorm
+from .models.roi_encoder import ROIEncoder
+from .ops.deform_conv import DFConv2d
 from .ops.decode import DecodeCfg, decode_proposals
 from .ops.fcos_losses import FCOSLossCfg
 from .ops.locations import build_location_grid
@@ -50,6 +58,8 @@ from .train.checkpoint import (CheckpointManager, filter_params_by_module,
 from .train.optimizer import build_freeze_mask, build_optimizer
 from .train.steps import make_episodic_train_step, make_pretrain_train_step
 from .train.train_state import TrainState
+from .utils.convert_d2 import (convert_detectron2_checkpoint,
+                               load_torch_state_dict)
 from .utils.convert_weights import state_dict_from_jax
 from .utils.events import AbnormalLossChecker, MetricsWriter
 from .utils.tb_writer import write_eval_results_tb
@@ -72,7 +82,18 @@ def resolve_device(device: Union[str, torch.device] = "cuda"
 def _codegen_kwargs(cfg) -> Dict:
     cg = cfg.MODEL.META_LEARN.CODE_GENERATOR
     if cg.NAME == "ROIEncoder":
-        raise NotImplementedError("the ROIEncoder is not ported yet")
+        return dict(
+            pooler_resolution=cg.ROI_BOX.POOLER_RESOLUTION,
+            tokenizer_num_conv=cg.TOKENIZER.NUM_CONV,
+            tokenizer_conv_dim=cg.TOKENIZER.CONV_DIM,
+            tokenizer_norm=cg.TOKENIZER.NORM,
+            tokenizer_num_fc=cg.TOKENIZER.NUM_FC,
+            tokenizer_fc_dim=cg.TOKENIZER.FC_DIM,
+            transformer_layers=cg.TRANSFORMER_ENCODER.LAYERS,
+            transformer_heads=cg.TRANSFORMER_ENCODER.HEADS,
+            transformer_dropout=cg.TRANSFORMER_ENCODER.DROPOUT,
+            head_num_fc=cg.HEAD.NUM_FC, head_fc_dim=cg.HEAD.FC_DIM,
+            head_output_dim=cg.HEAD.OUTPUT_DIM)
     return dict(
         pooler_resolution=cg.ROI_BOX.POOLER_RESOLUTION,
         out_channel=cg.OUT_CHANNEL,
@@ -137,6 +158,17 @@ def init_random_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(module, ROIBoxHead):
             _init_box_head_params(module, randn, 1.0 / math.sqrt(
                 module.fc_dim))
+        elif isinstance(module, DFConv2d):
+            module.weight.copy_(randn(*module.weight.shape)
+                                / math.sqrt(module.weight[0].numel()))
+            module.bias.copy_(0.1 * randn(*module.bias.shape))
+        elif isinstance(module, FCOSHead) and module.l2_norm_cls_weight:
+            c = module.cosine_gn_scale.numel()
+            module.cosine_weight.copy_(randn(*module.cosine_weight.shape))
+            module.cosine_bias.copy_(0.1 * randn(*module.cosine_bias.shape))
+            module.cosine_scale.copy_(0.1 * randn())
+            module.cosine_gn_scale.copy_(1.0 + 0.1 * randn(c))
+            module.cosine_gn_bias.copy_(0.1 * randn(c))
         elif isinstance(module, FrozenBatchNorm):
             c = module.scale.numel()
             gamma = 1.0 + 0.1 * randn(c)
@@ -146,13 +178,14 @@ def init_random_weights(model: nn.Module, seed: int) -> nn.Module:
             scale = gamma / torch.sqrt(var + BN_EPS)
             module.scale.copy_(scale)
             module.bias.copy_(beta - mean * scale)
-        elif isinstance(module, GroupNorm):
-            module.weight.copy_(1.0 + 0.1 * randn(module.num_channels))
-            module.bias.copy_(0.1 * randn(module.num_channels))
+        elif isinstance(module, (GroupNorm, nn.LayerNorm)):
+            c = module.weight.numel()
+            module.weight.copy_(1.0 + 0.1 * randn(c))
+            module.bias.copy_(0.1 * randn(c))
         elif isinstance(module, Scale):
             module.scale.copy_(module.init_value * (1.0 + 0.1 * randn()))
     cg = getattr(model, "code_generator", None)
-    if cg is not None and cg.meta_bias:
+    if getattr(cg, "meta_bias", False):
         cg.meta_bias_value.fill_(cg.prior)
     return model
 
@@ -171,14 +204,22 @@ def init_train_weights(model: nn.Module, seed: int,
 
       * backbone and FPN convs: lecun normal (flax ``nn.Conv`` default),
         biases 0; FrozenBN scale 1, bias 0;
-      * FCOS head and code-generator convs: normal(0.01), biases 0, with
+      * FCOS head and CodeGenerator convs: normal(0.01), biases 0, with
         ``cls_logits``'s bias at the focal prior -log((1 - p) / p)
-        (fcos_head.py:49-50, 126-137; code_generator.py:56);
-      * GroupNorm scale 1, bias 0; every ``Scale`` at its init value;
-        ``meta_bias_value`` at the prior (code_generator.py:217).
+        (fcos_head.py:49-50, 126-137; code_generator.py:56); the cosine
+        classifier's weight normal(0.01), bias at the prior, scale 0;
+        a ``DFConv2d``'s kernel normal(0.01) and its ``offset`` conv 0;
+      * the ROIEncoder's convs and Dense layers lecun normal (flax's
+        defaults), biases 0;
+      * GroupNorm and LayerNorm scale 1, bias 0; every ``Scale`` at its init
+        value; ``meta_bias_value`` at the prior (code_generator.py:217).
     """
     gen = torch.Generator().manual_seed(seed)
     prior = -math.log((1 - prior_prob) / prior_prob)
+    roi_encoder = isinstance(getattr(model, "code_generator", None),
+                             ROIEncoder)
+    offsets = {f"{n}.offset" for n, m in model.named_modules()
+               if isinstance(m, DFConv2d)}
 
     def normal(shape, std):
         return std * torch.randn(shape, generator=gen)
@@ -188,8 +229,11 @@ def init_train_weights(model: nn.Module, seed: int,
             shape = module.weight.shape
             std = {"box_head.cls_score": 0.01,
                    "box_head.bbox_pred": 0.001}.get(name)
-            if std is not None or name.startswith(
-                    ("fcos_head.", "code_generator.", "rpn_head.")):
+            small = name.startswith(("fcos_head.", "rpn_head.")) or (
+                name.startswith("code_generator.") and not roi_encoder)
+            if name in offsets:
+                w = torch.zeros(shape)
+            elif std is not None or small:
                 w = normal(shape, 0.01 if std is None else std)
             else:
                 std = math.sqrt(1.0 / module.weight[0].numel()) \
@@ -204,16 +248,26 @@ def init_train_weights(model: nn.Module, seed: int,
         elif isinstance(module, ROIBoxHead):
             _init_box_head_params(module, lambda *shape: normal(shape, 1.0),
                                   0.01)
+        elif isinstance(module, DFConv2d):
+            module.weight.copy_(normal(module.weight.shape, 0.01))
+            module.bias.fill_(0.0)
+        elif isinstance(module, FCOSHead) and module.l2_norm_cls_weight:
+            module.cosine_weight.copy_(normal(module.cosine_weight.shape,
+                                              0.01))
+            module.cosine_bias.fill_(prior)
+            module.cosine_scale.fill_(0.0)
+            module.cosine_gn_scale.fill_(1.0)
+            module.cosine_gn_bias.fill_(0.0)
         elif isinstance(module, FrozenBatchNorm):
             module.scale.fill_(1.0)
             module.bias.fill_(0.0)
-        elif isinstance(module, GroupNorm):
+        elif isinstance(module, (GroupNorm, nn.LayerNorm)):
             module.weight.fill_(1.0)
             module.bias.fill_(0.0)
         elif isinstance(module, Scale):
             module.scale.fill_(module.init_value)
     cg = getattr(model, "code_generator", None)
-    if cg is not None and cg.meta_bias:
+    if getattr(cg, "meta_bias", False):
         cg.meta_bias_value.fill_(cg.prior)
     return model
 
@@ -368,19 +422,24 @@ class MetaFCOSRunner:
     def _load_weights(cfg, model: MetaOneStageDetector):
         """MODEL.WEIGHTS with WEIGHTS_FILTER_BY_MODULE (reference
         _weight_preprocess, meta_fcos_runner.py:232-288): a flat ``.npz`` of
-        flax params or a port checkpoint; leaves whose shapes differ are
-        skipped, a mostly mismatched file is refused."""
+        flax params, a port checkpoint, or a detectron2 ``.pth``/``.pkl``
+        converted as the JAX package converts it; leaves whose shapes
+        differ are skipped, a mostly mismatched file is refused."""
         path = cfg.MODEL.WEIGHTS
         if not path:
             return model
         if path.endswith((".pth", ".pkl")):
-            raise NotImplementedError(
-                "converting detectron2 .pth/.pkl checkpoints is not ported "
-                "yet; convert with the JAX package and save its params as a "
-                "flat .npz (tools/convert_checkpoint.py)")
+            loaded = convert_detectron2_checkpoint(
+                load_torch_state_dict(path),
+                num_tower_convs=max(cfg.MODEL.FCOS.NUM_CLS_CONVS,
+                                    cfg.MODEL.FCOS.NUM_BOX_CONVS),
+                num_attention_heads=cfg.MODEL.META_LEARN.CODE_GENERATOR
+                .TRANSFORMER_ENCODER.HEADS)
+        else:
+            loaded = load_params_any(path)
         loaded = filter_params_by_module(
-            load_params_any(path), list(cfg.MODEL.WEIGHTS_FILTER_BY_MODULE))
-        if path.endswith(".npz"):
+            loaded, list(cfg.MODEL.WEIGHTS_FILTER_BY_MODULE))
+        if path.endswith((".npz", ".pth", ".pkl")):   # flax-layout trees
             loaded = state_dict_from_jax(loaded)
         return merge_state_dict(model, loaded)
 
@@ -476,6 +535,7 @@ class MetaFCOSRunner:
             return make_pretrain_train_step(model, grid, lc, **kw)
         return make_episodic_train_step(
             model, grid, lc, num_shots=cfg.MODEL.META_LEARN.SHOT,
+            seed=max(cfg.SEED, 0),
             pretrained_kernel=(self._cls_logits_kernel(model)
                                if lc.distill_weight > 0 else None), **kw)
 
@@ -687,18 +747,115 @@ def _plain_eval_loop(infer, records, mapper, id_map, evaluator,
     return evaluator.evaluate()
 
 
+class MetaFCOSROIEncoderRunner(MetaFCOSRunner):
+    """The ROIEncoder code generator variant (reference
+    meta_fcos_roi_encoder_runner.py:24-37)."""
+
+    @classmethod
+    def get_default_cfg(cls) -> CfgNode:
+        cfg = super().get_default_cfg()
+        cfg.MODEL.META_LEARN.CODE_GENERATOR.NAME = "ROIEncoder"
+        return cfg
+
+
+class TFAFewShotDetectionRunner(MetaFCOSRunner):
+    """The TFA finetune baseline: non-episodic training through the plain
+    path with the config's freezing (reference tfa_runner.py:23-39), the
+    cosine head under MODEL.FCOS.L2_NORM_CLS_WEIGHT, and the base-class
+    ``cls_logits`` surgery at build time."""
+
+    @classmethod
+    def get_default_cfg(cls) -> CfgNode:
+        cfg = super().get_default_cfg()
+        cfg.MODEL.META_LEARN.EPISODIC_LEARNING = False
+        cfg.MODEL.TFA.FINETINE = True
+        return cfg
+
+    def build_model(self, cfg, init: str = "random") -> MetaOneStageDetector:
+        model = super().build_model(cfg, init=init)
+        if (cfg.MODEL.TFA.USE_PRETRAINED_BASE_CLS_LOGITS
+                and cfg.MODEL.WEIGHTS
+                and cfg.DATASETS.BASE_CLASSES_SPLIT
+                and cfg.DATASETS.TRAIN):
+            self._preload_cls_logits(cfg, model)
+        return model
+
+    @torch.no_grad()
+    def _preload_cls_logits(self, cfg, model: MetaOneStageDetector) -> bool:
+        """TFA surgery (JAX ``_preload_cls_logits``, reference
+        _preload_cls_logits_weights, fcos.py:344-380): copy the base-class
+        rows of the 1x1 ``cls_logits`` in MODEL.WEIGHTS (a base-classes
+        model: a flat ``.npz``, a port checkpoint or a detectron2
+        ``.pth``/``.pkl``) into the model's all-classes head, at the
+        contiguous ids the current dataset gives those classes. A surgery
+        that cannot be made warns loudly and returns False.
+
+        A cosine head (MODEL.FCOS.L2_NORM_CLS_WEIGHT) has no ``cls_logits``
+        to write into: when the checkpoint does have one, the JAX package
+        fails with a KeyError at its ``params["fcos_head"]["cls_logits"]``,
+        and the port raises a ValueError that says so."""
+        log = logging.getLogger(__name__)
+        path = cfg.MODEL.WEIGHTS
+        if path.endswith((".pth", ".pkl")):
+            loaded = state_dict_from_jax(convert_detectron2_checkpoint(
+                load_torch_state_dict(path)))
+        else:
+            try:
+                loaded = load_params_any(path)
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                log.warning(
+                    "[TFA] cls-logits surgery REQUESTED "
+                    "(MODEL.TFA.USE_PRETRAINED_BASE_CLS_LOGITS) but "
+                    "MODEL.WEIGHTS=%r could not be read natively (%s) — "
+                    "surgery SKIPPED, base rows stay at random init", path, e)
+                return False
+            if path.endswith(".npz"):
+                loaded = state_dict_from_jax(loaded)
+        key = "fcos_head.cls_logits"
+        if f"{key}.weight" not in loaded or f"{key}.bias" not in loaded:
+            log.warning(
+                "[TFA] cls-logits surgery REQUESTED but checkpoint %r has "
+                "no fcos_head/cls_logits (cosine head or headless "
+                "checkpoint?) — surgery SKIPPED", path)
+            return False
+        head = model.fcos_head
+        if head.l2_norm_cls_weight:
+            raise ValueError(
+                "[TFA] cls-logits surgery: the model's head is the cosine "
+                "classifier (MODEL.FCOS.L2_NORM_CLS_WEIGHT), which has no "
+                "fcos_head/cls_logits to copy the base rows of "
+                f"{path!r} into; set MODEL.TFA.USE_PRETRAINED_BASE_CLS_LOGITS"
+                " to false")
+        base_w = torch.as_tensor(loaded[f"{key}.weight"])  # (C_base, C, k, k)
+        base_b = torch.as_tensor(loaded[f"{key}.bias"])
+        base_ids = MetadataCatalog.get(cfg.DATASETS.BASE_CLASSES_SPLIT).get(
+            "thing_dataset_id_to_contiguous_id")
+        if base_ids is None:  # lazily registered: load the dataset
+            base_ids = DatasetCatalog.get(cfg.DATASETS.BASE_CLASSES_SPLIT)[
+                "metadata"]["thing_dataset_id_to_contiguous_id"]
+        cur_ids = DatasetCatalog.get(cfg.DATASETS.TRAIN[0])["metadata"][
+            "thing_dataset_id_to_contiguous_id"]
+        w, b = head.cls_logits.weight, head.cls_logits.bias
+        for did, bi in base_ids.items():
+            if did in cur_ids:
+                w[cur_ids[did]] = base_w[bi].to(w)
+                b[cur_ids[did]] = base_b[bi].to(b)
+        print(f"[TFA] preloaded {len(base_ids)} base cls_logits rows")
+        return True
+
+
 def create_runner(name: str, device: Union[str, torch.device] = "cuda"
                   ) -> MetaFCOSRunner:
     """A runner by name (reference-style dotted names accepted):
-    ``MetaFCOSRunner``, ``MetaFasterRCNNRunner``, ``TFAFasterRCNNRunner``.
-    The ROIEncoder and TFA one-stage runners are not ported yet and raise."""
+    ``MetaFCOSRunner``, ``MetaFCOSROIEncoderRunner``,
+    ``TFAFewShotDetectionRunner``, ``MetaFasterRCNNRunner``,
+    ``TFAFasterRCNNRunner``."""
     from .meta_faster_rcnn_runner import (MetaFasterRCNNRunner,
                                           TFAFasterRCNNRunner)
 
     table = {"MetaFCOSRunner": MetaFCOSRunner,
+             "MetaFCOSROIEncoderRunner": MetaFCOSROIEncoderRunner,
+             "TFAFewShotDetectionRunner": TFAFewShotDetectionRunner,
              "MetaFasterRCNNRunner": MetaFasterRCNNRunner,
              "TFAFasterRCNNRunner": TFAFasterRCNNRunner}
-    key = name.split(".")[-1]
-    if key not in table:
-        raise NotImplementedError(f"runner {name} is not ported yet")
-    return table[key](device=device)
+    return table[name.split(".")[-1]](device=device)

@@ -3,6 +3,8 @@
     python3 -m sylph_tpu_torch.tools.profile_meta_test [--out FILE]
     python3 -m sylph_tpu_torch.tools.profile_meta_test \
         --runner MetaFasterRCNNRunner [--config-file CFG] [--out FILE]
+    python3 -m sylph_tpu_torch.tools.profile_meta_test \
+        --runner MetaFCOSROIEncoderRunner|TFAFewShotDetectionRunner
 
 With the default ``--runner MetaFCOSRunner``: chip_smoke.py's meta-test
 setting, the Meta-FCOS finetune config (R-50, bf16, 1024x1344 eval canvas,
@@ -22,6 +24,11 @@ warm-up run and then one traced with ``torch.profiler``. Reports:
     streaming (as ``do_test`` runs it) and with every chunk loaded before
     the first model call, in turns (streamed, loaded, loaded, streamed),
     untraced: whether the loader's thread slows the launching thread.
+
+``--runner MetaFCOSROIEncoderRunner`` runs the same setting on the COCO
+ROIEncoder finetune config (no normalization phase: its codes are final);
+``--runner TFAFewShotDetectionRunner`` the plain evaluation of the COCO TFA
+finetune config on coco_meta_val_all (no phases, no base codes).
 
 With ``--runner MetaFasterRCNNRunner``: chip_smoke.py's two-stage setting
 (``rcnn_meta_test_cfg``: Meta-RCNN-FPN-finetune.yaml, or ``--config-file``,
@@ -53,13 +60,23 @@ import time
 
 import torch
 
-from ..config import get_default_cfg
 from ..data.catalog import register_all_coco
 from ..data.synthetic import make_synthetic_coco
 from ..evaluation import meta_eval
-from ..runner import MetaFCOSRunner
+from ..runner import (MetaFCOSROIEncoderRunner, MetaFCOSRunner,
+                      TFAFewShotDetectionRunner)
 
 CONFIG = "sylph://COCO-Detection/Meta-FCOS/Meta-FCOS-finetune.yaml"
+# the one-stage runners and their shipped configs
+ONE_STAGE = {
+    "MetaFCOSRunner": (MetaFCOSRunner, CONFIG),
+    "MetaFCOSROIEncoderRunner": (
+        MetaFCOSROIEncoderRunner,
+        "sylph://COCO-Detection/Meta-FCOS-ROIEncoder/Meta-FCOS-finetune.yaml"),
+    "TFAFewShotDetectionRunner": (
+        TFAFewShotDetectionRunner,
+        "sylph://COCO-Detection/TFA/tfa-finetune.yaml"),
+}
 # the synthetic COCO tree of the meta-test setting
 DATA = dict(n_train=48, n_val=20, img_hw=(480, 640), n_empty_val=2)
 PHASES = ("generate_class_codes", "generate_base_class_codes",
@@ -89,15 +106,22 @@ def rcnn_meta_test_cfg(out_dir: str, config: str = RCNN_CONFIG):
     return cfg
 
 
-def meta_test_cfg(out_dir: str):
-    cfg = get_default_cfg()
-    cfg.merge_from_file(CONFIG)
+def meta_test_cfg(out_dir: str, runner: str = "MetaFCOSRunner"):
+    """The one-stage meta-test at full width for ``runner``'s shipped config:
+    EVAL_BATCH 8, CLASS_BATCH 8, REPEAT_TEST 1, all-GT base codes, on
+    coco_meta_val_novel and coco_meta_val_all (the TFA config: its plain
+    evaluation on coco_meta_val_all)."""
+    cls, config = ONE_STAGE[runner]
+    cfg = cls.get_default_cfg()
+    cfg.merge_from_file(config)
     cfg.MODEL.FCOS.INFERENCE_TH_TEST = 0.02  # random weights: scores < 0.04
     cfg.TPU.EVAL_BATCH = 8
     cfg.TPU.CLASS_BATCH = 8
     cfg.TEST.REPEAT_TEST = 1
     cfg.MODEL.META_LEARN.USE_ALL_GTS_IN_BASE_CLASSES = True
-    cfg.DATASETS.TEST = ["coco_meta_val_novel", "coco_meta_val_all"]
+    cfg.DATASETS.TEST = (["coco_meta_val_novel", "coco_meta_val_all"]
+                         if cfg.MODEL.META_LEARN.EPISODIC_LEARNING
+                         else ["coco_meta_val_all"])
     cfg.OUTPUT_DIR = out_dir
     return cfg
 
@@ -344,7 +368,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="profile_meta_test.txt")
     parser.add_argument("--runner", default="MetaFCOSRunner",
-                        choices=("MetaFCOSRunner", "MetaFasterRCNNRunner"))
+                        choices=(*ONE_STAGE, "MetaFasterRCNNRunner"))
     parser.add_argument("--config-file", default="",
                         help="the two-stage config (default "
                              "Meta-RCNN-FPN-finetune.yaml)")
@@ -365,14 +389,15 @@ def main() -> None:
         root = os.path.join(work, "coco")
         make_synthetic_coco(root, **DATA)
         register_all_coco(root)
-        cfg = meta_test_cfg(os.path.join(work, "out"))
-        runner = MetaFCOSRunner()
+        cfg = meta_test_cfg(os.path.join(work, "out"), args.runner)
+        runner = ONE_STAGE[args.runner][0]()
         model = runner.build_model(cfg)
         runner.do_test(cfg, model)  # warm-up
         torch.cuda.synchronize()
         prof, traced_ms = _traced_do_test(runner, cfg, model, stages=False)
         stats = {name: dict(d.stats) for name, d in runner.drivers.items()}
-        base_turns = _base_codegen_turns(runner.drivers["coco_meta_val_all"])
+        base_turns = (_base_codegen_turns(runner.drivers["coco_meta_val_all"])
+                      if runner.drivers else [])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -394,7 +419,8 @@ def main() -> None:
             print(f"[profile] phase {name}: {len(spans)} calls, host window "
                   f"{host:.1f} ms, device busy {dev:.1f} ms "
                   f"({100 * dev / max(host, 1e-9):.1f}% of the window)")
-    print(f"[profile] traced do_test (both datasets): {traced_ms:.1f} ms "
+    print(f"[profile] traced do_test ({', '.join(cfg.DATASETS.TEST)}): "
+          f"{traced_ms:.1f} ms "
           f"wall, device busy {busy_ms:.1f} ms, idle share "
           f"{100 * (1 - busy_ms / traced_ms):.1f}%")
     for mode, gen_s, wait_s in base_turns:

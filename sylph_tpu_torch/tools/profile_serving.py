@@ -1,6 +1,7 @@
 """Where one serving request's time goes on the card.
 
     python3 -m sylph_tpu_torch.tools.profile_serving [--out FILE]
+        [--runner MetaFCOSROIEncoderRunner] [--deformable]
 
 Builds the predictor of chip_smoke.py's serving phase (Meta-FCOS finetune
 config, R-50 at the 1024x1344 eval canvas, a 1280-row bank with 3
@@ -14,6 +15,10 @@ INFERENCE_TH_TEST 0.02), warms it up, then:
   * traces 5 requests with ``torch.profiler`` and reports the device's busy
     share, the kernels that take the most device time, and the NMS
     kernels' own time.
+
+``--runner MetaFCOSROIEncoderRunner`` serves the COCO ROIEncoder finetune
+config instead (codes as the ROIEncoder emits them); ``--deformable`` turns
+on MODEL.FCOS.USE_DEFORMABLE (DCNv2 as the last conv of each tower).
 
 Prints the card's ``name, power.limit`` beside the numbers; the full
 per-kernel table goes to ``--out`` (default profile_serving.txt).
@@ -30,12 +35,10 @@ import time
 import numpy as np
 import torch
 
-from ..config import get_default_cfg
 from ..ops.decode import select_candidates
 from ..ops.nms import batched_multiclass_nms
 from ..predictor import SylphPredictor
-
-CONFIG = "sylph://COCO-Detection/Meta-FCOS/Meta-FCOS-finetune.yaml"
+from .profile_meta_test import ONE_STAGE
 
 
 def _median_ms(fn, reps: int = 10) -> float:
@@ -51,11 +54,14 @@ def _median_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def build_predictor() -> SylphPredictor:
-    cfg = get_default_cfg()
-    cfg.merge_from_file(CONFIG)
+def build_predictor(runner: str = "MetaFCOSRunner",
+                    deformable: bool = False) -> SylphPredictor:
+    cls, config = ONE_STAGE[runner]
+    cfg = cls.get_default_cfg()
+    cfg.merge_from_file(config)
     cfg.MODEL.FCOS.INFERENCE_TH_TEST = 0.02  # random weights: scores < 0.04
-    pred = SylphPredictor(cfg=cfg, device="cuda")
+    cfg.MODEL.FCOS.USE_DEFORMABLE = deformable
+    pred = SylphPredictor(cfg=cfg, runner_name=runner, device="cuda")
     rng = np.random.RandomState(0)
     shots = cfg.MODEL.META_LEARN.EVAL_SHOT
     for name in ("class_a", "class_b", "class_c"):
@@ -69,6 +75,9 @@ def build_predictor() -> SylphPredictor:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="profile_serving.txt")
+    parser.add_argument("--runner", default="MetaFCOSRunner",
+                        choices=("MetaFCOSRunner", "MetaFCOSROIEncoderRunner"))
+    parser.add_argument("--deformable", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_serving needs an NVIDIA card")
@@ -77,7 +86,7 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
 
-    pred = build_predictor()
+    pred = build_predictor(args.runner, args.deformable)
     image = np.random.RandomState(1).randint(0, 256, (800, 1216, 3),
                                              dtype=np.uint8)
     for _ in range(3):

@@ -3,6 +3,8 @@
     python3 -m sylph_tpu_torch.tools.profile_train [--steps 2] [--out FILE]
     python3 -m sylph_tpu_torch.tools.profile_train \
         --runner MetaFasterRCNNRunner [--mode episodic|pretrain] [--steps 2]
+    python3 -m sylph_tpu_torch.tools.profile_train \
+        --runner MetaFCOSROIEncoderRunner|TFAFewShotDetectionRunner
 
 Meta-FCOS (the default) runs chip_smoke.py's full-width meta-training
 setting (``train_cfg``): the Meta-FCOS finetune config as
@@ -16,7 +18,11 @@ Meta-RCNN finetune config (48 episodes in one group, backbone frozen) or,
 with ``--mode pretrain``, the pretrain config (batch 32 in micro-batches of
 8, everything but FrozenBN trained). Both start from the flax initializers'
 distributions; one warm-up step, then ``--steps`` steps traced with
-``torch.profiler``. Reports:
+``torch.profiler``. ``--runner MetaFCOSROIEncoderRunner`` meta-trains the
+COCO ROIEncoder finetune config as Meta-FCOS does (dropout 0.1, drawn per
+micro-group); ``--runner TFAFewShotDetectionRunner`` finetunes the COCO TFA
+config through the plain path (batch 16, backbone, cls tower and bbox
+branch frozen) on coco_pretrain_finetune_all. Reports:
 
   * each traced step's data wait and step wait on the host clock;
   * the device time of the kernels launched inside each named window: for
@@ -57,7 +63,7 @@ from ..models import rcnn
 from ..runner import MetaFCOSRunner
 from ..train import steps as train_steps
 from ..train.train_state import TrainState
-from .profile_meta_test import DATA, RCNN_DATA
+from .profile_meta_test import DATA, ONE_STAGE, RCNN_DATA
 from .train_net import auto_scale_world_size
 
 CONFIGS = {
@@ -70,6 +76,8 @@ RCNN_CONFIGS = {
     "pretrain": "sylph://LVISv1-Detection/Meta-RCNN/"
                 "Meta-RCNN-FPN-pretrain.yaml",
 }
+# the one-stage variants (their shipped configs: ONE_STAGE)
+VARIANTS = ("MetaFCOSROIEncoderRunner", "TFAFewShotDetectionRunner")
 WINDOWS = ("randaugment", "assign", "optimizer")
 RCNN_WINDOWS = ("rpn_losses", "rpn_proposals", "rpn_nms", "roi_sampling",
                 "roi_align", "roi_align_backward", "box_head", "optimizer")
@@ -91,6 +99,29 @@ def train_cfg(mode: str, max_iter: int, out_dir: str = "",
     cfg.SOLVER.CHECKPOINT_PERIOD = 10 ** 9
     cfg.TEST.EVAL_PERIOD = 0
     cfg.OUTPUT_DIR = out_dir
+    return cfg
+
+
+def variant_train_cfg(runner: str, max_iter: int, cosine: bool = False):
+    """A one-stage variant's shipped finetune config at full width,
+    auto-scaled to one card, training on the synthetic tree for
+    ``max_iter`` steps: the ROIEncoder meta-trains on coco_meta_train_base;
+    the TFA finetune (the cosine head with ``cosine``) trains through the
+    plain path on coco_pretrain_finetune_all, the TFA K-shot subset of every
+    class (the config's coco_meta_train_all is an episodic dataset, which
+    the plain loader refuses in both packages)."""
+    cls, config = ONE_STAGE[runner]
+    cfg = cls.get_default_cfg()
+    cfg.merge_from_file(config)
+    cfg.MODEL.FCOS.L2_NORM_CLS_WEIGHT = cosine
+    auto_scale_world_size(cfg, world=1)
+    cfg.DATASETS.TRAIN = (["coco_meta_train_base"]
+                          if cfg.MODEL.META_LEARN.EPISODIC_LEARNING
+                          else ["coco_pretrain_finetune_all"])
+    cfg.SOLVER.MAX_ITER = max_iter
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 ** 9
+    cfg.TEST.EVAL_PERIOD = 0
+    cfg.OUTPUT_DIR = ""
     return cfg
 
 
@@ -201,16 +232,22 @@ def _setup(args, work: str):
     """The runner, config and model of the run, its data written and
     registered under ``work``; -> (runner, cfg, model, loader factory,
     window names, restore-installing function)."""
-    if args.runner == "MetaFCOSRunner":
+    if args.runner == "MetaFCOSRunner" or args.runner in VARIANTS:
         root = os.path.join(work, "coco")
         make_synthetic_coco(root, **DATA)
         register_all_coco(root)
-        runner, cfg = MetaFCOSRunner(), train_cfg("episodic", 1)
-        return (runner, cfg, runner._episodic_loader, WINDOWS,
-                _traced_windows)
+        if args.runner in VARIANTS:
+            runner = ONE_STAGE[args.runner][0]()
+            cfg = variant_train_cfg(args.runner, 1)
+        else:
+            runner, cfg = MetaFCOSRunner(), train_cfg("episodic", 1)
+        loader = (runner._episodic_loader
+                  if cfg.MODEL.META_LEARN.EPISODIC_LEARNING
+                  else runner._pretrain_loader)
+        return runner, cfg, loader, WINDOWS, _traced_windows
     if args.runner != "MetaFasterRCNNRunner":
-        raise ValueError(f"--runner {args.runner}: MetaFCOSRunner or "
-                         "MetaFasterRCNNRunner")
+        raise ValueError(f"--runner {args.runner}: MetaFCOSRunner, "
+                         f"{', '.join(VARIANTS)} or MetaFasterRCNNRunner")
     lvis, images = os.path.join(work, "lvis"), os.path.join(work, "images")
     make_synthetic_lvis(lvis, images, **RCNN_DATA)
     register_all_lvis(lvis, images)
@@ -270,7 +307,8 @@ def main() -> None:
     busy_ms = sum(us for _, us, _ in kernels) / 1e3
 
     print(f"[profile] card: {card}")
-    mode = "episodic" if args.runner == "MetaFCOSRunner" else args.mode
+    mode = ("episodic" if cfg.MODEL.META_LEARN.EPISODIC_LEARNING
+            else "pretrain")
     print(f"[profile] {args.runner} {mode}: batch "
           f"{cfg.SOLVER.IMS_PER_BATCH}, GRAD_ACCUM {cfg.TPU.GRAD_ACCUM}")
     for i, (data_s, step_s) in enumerate(runner.loop_times):

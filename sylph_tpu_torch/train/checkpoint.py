@@ -8,7 +8,8 @@
     layout (``a/b/c`` keys, the layout of the JAX package's
     ``tools/convert_checkpoint.py``) as a nested dict, or from one of this
     module's checkpoints (a ``.pt`` file or its directory) as a state_dict.
-    Orbax directories cannot be read without JAX and raise;
+    Orbax directories cannot be read without JAX and raise; detectron2
+    ``.pth``/``.pkl`` files are converted by ``utils/convert_d2.py``;
   * ``filter_params_by_module`` (MODEL.WEIGHTS_FILTER_BY_MODULE) and
     ``merge_state_dict``: loaded leaves overlay the model's, a shape
     mismatch is skipped, and a checkpoint where most leaves mismatch is
@@ -96,9 +97,9 @@ def load_params_any(path: str) -> Union[Dict, Dict[str, torch.Tensor]]:
             "as a flat .npz with the JAX package's "
             "tools/convert_checkpoint.py and load that")
     raise NotImplementedError(
-        f"cannot load {path}: the port reads flat .npz files (flax layout) "
-        "and its own .pt checkpoints; detectron2 .pth/.pkl conversion is "
-        "not ported yet")
+        f"cannot load {path}: this reads flat .npz files (flax layout) and "
+        "the port's own .pt checkpoints; a detectron2 .pth/.pkl goes "
+        "through utils/convert_d2.py::convert_detectron2_checkpoint")
 
 
 def filter_params_by_module(params: Mapping, prefixes: List[str]) -> Dict:

@@ -19,6 +19,10 @@ run's ranks on one card):
 With m = 1 this is the plain step. Targets are assigned per group, which
 keeps the assigner's (B, K, M, 4) intermediate at the group's size.
 
+The episodic step hands each group's forward a CPU ``torch.Generator``
+seeded from (seed, iteration, group) for the ROIEncoder's dropout, so a
+resumed run draws what an uninterrupted one does.
+
 ``TPU.STEPS_PER_CALL`` (K optimizer steps in one TPU dispatch) changes no
 numbers and exists for the TPU's dispatch cost; the port runs one step per
 call and raises on larger values.
@@ -152,7 +156,8 @@ def make_pretrain_train_step(model, grid, loss_cfg: FCOSLossCfg,
 def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
                              num_shots: int, center_sample: bool = True,
                              radius: float = 1.5, pretrained_kernel=None,
-                             steps_per_call: int = 1, grad_accum: int = 1
+                             steps_per_call: int = 1, grad_accum: int = 1,
+                             seed: int = 0
                              ) -> Callable[[TrainState, Batch],
                                            Tuple[TrainState, Dict]]:
     """Batch (E episodes): support_images (E*shot, Hs, Ws, 3),
@@ -165,6 +170,7 @@ def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
     g = _Grid(grid, next(model.parameters()).device)
 
     def step(state: TrainState, batch: Batch):
+        it = state.step
         batch = _apply_device_aug(batch, "query_images", "query_aug_ops",
                                   "query_aug_params", "query_image_sizes")
         ids_m = batch["episode_class_ids"].reshape(m, -1)     # (m, E/m)
@@ -187,7 +193,9 @@ def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
                 batch["support_images"][ss[gi]],
                 batch["support_boxes"][ss[gi]],
                 batch["support_box_valid"][ss[gi]],
-                batch["query_images"][qs[gi]], num_shots)
+                batch["query_images"][qs[gi]], num_shots,
+                generator=torch.Generator().manual_seed(
+                    SampleDraws.step_seed(seed, it, gi)))
             losses = fcos_episodic_losses(
                 out.logits, out.reg, out.ctrness, targets[gi], ids_m[gi],
                 loss_cfg, class_code=codes,

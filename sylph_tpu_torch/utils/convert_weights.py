@@ -8,12 +8,18 @@ numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 
   * conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw);
   * Dense ``kernel`` (in, out) -> ``nn.Linear.weight`` (out, in);
-  * GroupNorm ``scale``/``bias`` -> ``weight``/``bias``;
+  * the ROIEncoder's attention ``DenseGeneral`` leaves: ``query``/``key``/
+    ``value`` kernels (d, heads, head_dim) -> ``weight`` (heads * head_dim,
+    d) with their (heads, head_dim) biases kept, the ``out`` kernel (heads,
+    head_dim, d) -> ``weight`` (d, heads * head_dim);
+  * GroupNorm and LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
   * FrozenBN ``scale``/``bias`` -> the buffers of the same names;
-  * the two-stage box head's own parameters (``cosine_weight`` (C+1, D),
-    ``bg_weight`` (D,)) keep their names and shapes;
+  * the parameters the heads declare themselves (the two-stage box head's
+    ``cosine_weight`` (C+1, D) and ``bg_weight`` (D,), the TFA cosine
+    classifier's ``cosine_weight`` (N, C), ``cosine_bias``,
+    ``cosine_gn_scale`` and ``cosine_gn_bias``) keep their names and shapes;
   * scalars (``Scale.scale``, ``meta_bias_value``, ``bg_bias``,
-    ``cosine_scale_param``) -> 0-d tensors.
+    ``cosine_scale_param``, ``cosine_scale``) -> 0-d tensors.
 
 ``load_jax_params`` loads the result with ``strict=True``: a key left
 unconsumed on either side raises.
@@ -28,29 +34,41 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# flax GroupNorm modules: FCOS towers ``gn{i}``, codegen ``{name}_gn`` and
-# ``{name}_ln``, and the code post-norm. FrozenBN modules (``bn{i}``,
-# ``stem_bn1``, ``shortcut_bn``) keep ``scale``.
-_GROUP_NORM = re.compile(r"^(gn\d+|.*_gn|.*_ln|post_norm)$")
+# flax GroupNorm and LayerNorm modules: FCOS towers ``gn{i}``, codegen
+# ``{name}_gn`` and ``{name}_ln``, the code post-norm, the ROIEncoder's
+# ``fusion_gn``, ``{local,global}_gn{i}``, ``tok_gn{i}`` and ``norm{i}``.
+# FrozenBN modules (``bn{i}``, ``stem_bn1``, ``shortcut_bn``) keep ``scale``.
+_GROUP_NORM = re.compile(r"^(gn\d+|.*_gn\d*|.*_ln|post_norm|norm\d+)$")
 # flax self.param leaves that the port keeps as parameters of the same name
-_PLAIN = {"cosine_weight": 2, "bg_weight": 1}
+_PLAIN = {"cosine_weight": 2, "bg_weight": 1, "cosine_bias": 1,
+          "cosine_gn_scale": 1, "cosine_gn_bias": 1}
+# flax MultiHeadDotProductAttention's DenseGeneral projections
+_HEADS_IN = ("query", "key", "value")
 
 
 def _leaf(module_path, leaf: str, arr: np.ndarray):
     where = "/".join([*module_path, leaf])
+    module = module_path[-1] if module_path else ""
     if leaf == "kernel":
         if arr.ndim == 4:
             return "weight", np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
         if arr.ndim == 2:
             return "weight", np.ascontiguousarray(arr.T)
-        raise ValueError(f"{where}: expected a 4-d conv or 2-d Dense kernel, "
-                         f"got {arr.shape}")
+        if arr.ndim == 3 and module in _HEADS_IN:     # (d, heads, head_dim)
+            return "weight", np.ascontiguousarray(
+                arr.reshape(arr.shape[0], -1).T)
+        if arr.ndim == 3 and module == "out":         # (heads, head_dim, d)
+            return "weight", np.ascontiguousarray(
+                arr.reshape(-1, arr.shape[-1]).T)
+        raise ValueError(f"{where}: expected a 4-d conv, a 2-d Dense or an "
+                         f"attention kernel, got {arr.shape}")
     if _PLAIN.get(leaf) == arr.ndim:
         return leaf, arr
-    if leaf == "bias" and arr.ndim == 1:
+    if leaf == "bias" and (arr.ndim == 1 or (arr.ndim == 2
+                                             and module in _HEADS_IN)):
         return "bias", arr
     if leaf == "scale" and arr.ndim == 1:
-        is_gn = bool(module_path) and _GROUP_NORM.match(module_path[-1])
+        is_gn = bool(_GROUP_NORM.match(module))
         return ("weight" if is_gn else "scale"), arr
     if arr.ndim == 0:
         return leaf, arr

@@ -50,5 +50,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "sylph_tpu_torch.train.checkpoint",
                 "sylph_tpu_torch.utils.events",
                 "sylph_tpu_torch.data.samplers",
-                "sylph_tpu_torch.tools.train_net"}
+                "sylph_tpu_torch.tools.train_net",
+                "sylph_tpu_torch.models.roi_encoder",
+                "sylph_tpu_torch.ops.deform_conv",
+                "sylph_tpu_torch.utils.convert_d2",
+                "sylph_tpu_torch.evaluation.visualization",
+                "sylph_tpu_torch.tools.demo_inference"}
     assert expected <= set(report["imported"])

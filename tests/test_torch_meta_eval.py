@@ -198,16 +198,12 @@ def test_entry_points_refuse_cuda_without_a_card(env, monkeypatch):
 
 
 def test_unported_parts_raise():
-    """The runners and the sharded registration not ported yet raise; the
-    two-stage runners (ported with make_rcnn_infer) build."""
-    for call in (lambda: create_runner("MetaFCOSROIEncoderRunner",
-                                       device="cpu"),
-                 lambda: create_runner("TFAFewShotDetectionRunner",
-                                       device="cpu"),
-                 meta_eval.generate_class_codes_sharded):
-        with pytest.raises(NotImplementedError):
-            call()
+    """The sharded registration (multi-GPU, not ported yet) raises; every
+    runner builds, the one-stage variants included."""
+    with pytest.raises(NotImplementedError):
+        meta_eval.generate_class_codes_sharded()
     assert isinstance(create_runner("sylph.runner.MetaFCOSRunner",
                                     device="cpu"), MetaFCOSRunner)
-    for name in ("MetaFasterRCNNRunner", "TFAFasterRCNNRunner"):
+    for name in ("MetaFasterRCNNRunner", "TFAFasterRCNNRunner",
+                 "MetaFCOSROIEncoderRunner", "TFAFewShotDetectionRunner"):
         assert type(create_runner(name, device="cpu")).__name__ == name

@@ -107,9 +107,9 @@ def test_default_cfg_equals_jax(tfa):
 
 
 def test_create_runner_and_refusals():
-    """Both two-stage names (dotted too) build on the CPU; the unported
-    runners raise; without a card every two-stage entry point, ``do_train``
-    included, refuses the default device."""
+    """Both two-stage names (dotted too) build on the CPU, and so do the
+    one-stage variants; without a card every two-stage entry point,
+    ``do_train`` included, refuses the default device."""
     from sylph_tpu_torch.evaluation.meta_eval import make_rcnn_infer
     from sylph_tpu_torch.models.rcnn import build_anchor_grid
     from sylph_tpu_torch.runner import create_runner
@@ -119,8 +119,7 @@ def test_create_runner_and_refusals():
     assert type(create_runner("sylph.runner.TFAFasterRCNNRunner",
                               device="cpu")) is TFAFasterRCNNRunner
     for name in ("MetaFCOSROIEncoderRunner", "TFAFewShotDetectionRunner"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            create_runner(name, device="cpu")
+        assert type(create_runner(name, device="cpu")).__name__ == name
     if torch.cuda.is_available():
         return
     for make in (MetaFasterRCNNRunner, TFAFasterRCNNRunner,

@@ -107,7 +107,8 @@ def test_surgery_matches_jax(tfa_coco, tmp_path, target):
 
 def test_surgery_skips_loudly(tfa_coco, tmp_path, caplog):
     """An unreadable MODEL.WEIGHTS or one without a box-head classifier
-    warns and leaves the head as it was; a detectron2 file raises."""
+    warns and leaves the head as it was; a detectron2 file is converted, not
+    skipped, so a missing one raises as it does in JAX."""
     runner = TFAFasterRCNNRunner(device="cpu")
     state = {"box_head.cosine_weight": torch.zeros(7, 8)}
     _, cfg = tfa_cfgs(tmp_path / "missing_dir")
@@ -123,7 +124,7 @@ def test_surgery_skips_loudly(tfa_coco, tmp_path, caplog):
     assert any("no box_head classifier" in r.message
                for r in caplog.records)
     _, cfg = tfa_cfgs(tmp_path / "base.pth")
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(FileNotFoundError):
         runner._preload_roi_cls_rows(cfg, state)
 
 

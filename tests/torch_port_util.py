@@ -100,11 +100,13 @@ def shrink_meta_cfg(cfg, episodic: bool = True):
     return cfg
 
 
-def tiny_model_pair(episodic: bool = True, seed: int = 0):
+def tiny_model_pair(episodic: bool = True, seed: int = 0, tweak=None):
     """The same random weights in a JAX model and a port model (CPU) on
-    ``shrink_meta_cfg`` configs: (jax cfg, jax model, params, port cfg,
-    port model). Params are the union of the base, the code-generation and
-    the normalization init, randomized detectron2-style."""
+    ``shrink_meta_cfg`` configs, each passed through ``tweak(cfg)`` when
+    given: (jax cfg, jax model, params, port cfg, port model). Params are
+    the union of the base, the code-generation and (but for the ROIEncoder,
+    whose codes are final) the normalization init, randomized
+    detectron2-style."""
     import jax.numpy as jnp
 
     from sylph_tpu.config import get_default_cfg as jax_default_cfg
@@ -116,6 +118,9 @@ def tiny_model_pair(episodic: bool = True, seed: int = 0):
 
     jcfg = shrink_meta_cfg(jax_default_cfg(), episodic)
     tcfg = shrink_meta_cfg(get_default_cfg(), episodic)
+    if tweak is not None:
+        tweak(jcfg)
+        tweak(tcfg)
     jmodel = build_model_from_cfg(jcfg)
     key = jax.random.PRNGKey(seed)
     query = jnp.zeros((1, *jcfg.TPU.EVAL_CANVAS, 3))
@@ -126,11 +131,13 @@ def tiny_model_pair(episodic: bool = True, seed: int = 0):
         code = jax.jit(lambda r: jmodel.init(
             r, sup, jnp.zeros((shot, 4)), jnp.ones((shot,), bool), shot,
             method=MetaOneStageDetector.forward_class_code))(key)
-        norm = jax.jit(lambda r: jmodel.init(
-            r, {"cls_conv": jnp.zeros((1, 256)), "cls_bias": jnp.zeros((1,))},
-            method=MetaOneStageDetector.normalize_code))(key)
-        params = merge_trees(merge_trees(params, to_numpy(code["params"])),
-                             to_numpy(norm["params"]))
+        params = merge_trees(params, to_numpy(code["params"]))
+        if jmodel.code_generator_name != "ROIEncoder":
+            norm = jax.jit(lambda r: jmodel.init(
+                r, {"cls_conv": jnp.zeros((1, 256)),
+                    "cls_bias": jnp.zeros((1,))},
+                method=MetaOneStageDetector.normalize_code))(key)
+            params = merge_trees(params, to_numpy(norm["params"]))
     params = randomize(params, np.random.RandomState(seed))
     tmodel = load_jax_params(torch_build(tcfg, device="cpu"), params)
     return jcfg, jmodel, params, tcfg, tmodel
