@@ -156,21 +156,53 @@ Phases, in order; any failure raises and the script exits non-zero:
      towers' dense outputs (phase 5's limits), two ROIEncoder episodic
      steps at DROPOUT 0.0 (phase 7's limits).
      Phases 17-19 print one ``serve`` or ``train`` JSON line per run.
+ 21. data-parallel registration and meta-test: phase 6's config. In this
+     process, fp32 with TF32 off, coco_meta_val_all's 6 classes registered
+     2 a call by ``generate_class_codes`` and by
+     ``generate_class_codes_sharded`` over an NCCL group of world 1: equal
+     bit for bit. Then 2 ranks (``torchrun --standalone``, each a process
+     on cuda:0 in one gloo group: the one card allows no NCCL past world
+     1) register their 3 classes each, the tail call padded: codes within
+     rtol 1e-4 / atol 1e-5 of the one process, both ranks' banks identical;
+     then the bf16 meta-test of phase 6 with the sharded bank: every NMS
+     launch equal to the twin (one a query batch, every rank scoring the
+     whole query set), the AP dicts of both ranks identical. One ``dp``
+     line: launches, registration ms a class alone and sharded, the
+     all-gather's ms;
+ 22. data-parallel training, fp32, TF32 off: phase 8's 48 episodes on 2
+     ranks x GRAD_ACCUM 8 against this process x 16, and phase 14's on 2
+     ranks x 1 against this process x 2, 2 steps each from the same
+     weights and batches: losses within rtol 1e-3, trained parameters
+     within atol 1e-4, both ranks' parameters bit-identical; in the
+     two-stage run the anchor labels and sampled ROIs of every rank and
+     step equal the one process's group's (its proposals handed on where
+     they differ), every RPN NMS launch (B = 24, K = 8768) equal to the
+     twin; rank 0's checkpoint restored on both ranks bit-equal and one
+     more step equal to the uninterrupted one (1e-5). One ``train`` line
+     per run with each rank's step ms, data wait and peak memory;
+ 23. the registration benchmark: ``tools/bench_registration.py`` on the
+     card, bf16, 1203 classes at 10 shots 8 a call and 64 one a call; one
+     ``registration`` line.
+     A child rank that fails or hangs past its timeout fails the script.
 
 The last lines are the card's ``name, power.limit``, one JSON object
 listing every kernel with its launches (in all, by path and by ranking
 route), error and times (``earlier_ms``: the first design's time on the
 serving path's NMS input; ``meta_test_ms``: the kernel on a B=8 meta-test
 batch; ``shapes``: phase 10's cases and the RPN-train inputs of phases
-14-15), and ``{"ok": true, "device": {...}}``.
+14-15; ``launches_by_path`` counts the ranks' launches of phases 21-22 as
+``dp_meta_test`` and ``dp_rcnn_train``), and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -182,8 +214,9 @@ import torch
 from sylph_tpu_torch import get_default_cfg
 from sylph_tpu_torch.data.catalog import (DatasetCatalog, register_all_coco,
                                           register_all_lvis)
-from sylph_tpu_torch.data.loader import build_query_loader
-from sylph_tpu_torch.data.meta_dataset import MetaDataset
+from sylph_tpu_torch.data.loader import (build_query_loader,
+                                         build_support_set_loader)
+from sylph_tpu_torch.data.meta_dataset import MetaDataset, temp_seed
 from sylph_tpu_torch.data.synthetic import (make_synthetic_coco,
                                             make_synthetic_lvis)
 from sylph_tpu_torch import runner as runner_mod
@@ -200,6 +233,7 @@ from sylph_tpu_torch.ops.image_ops import resize_shortest_edge_device
 from sylph_tpu_torch.ops.nms import (batched_multiclass_nms,
                                      class_offset_boxes,
                                      nms_select_reference)
+from sylph_tpu_torch.parallel import create_mesh
 from sylph_tpu_torch.predictor import SylphPredictor
 from sylph_tpu_torch.ops.assigner import assign_fcos_targets
 from sylph_tpu_torch.ops.image_aug import rand_augment_device
@@ -208,6 +242,7 @@ from sylph_tpu_torch.runner import (MetaFCOSRunner, _freeze_cfg, _mapper,
                                     build_model_from_cfg, create_runner)
 from sylph_tpu_torch.data.loader import batch_to_device
 from sylph_tpu_torch.data.transforms import draw_rand_augment
+from sylph_tpu_torch.tools import bench_registration
 from sylph_tpu_torch.tools.profile_meta_test import DATA as META_TEST_DATA
 from sylph_tpu_torch.tools.profile_meta_test import (ONE_STAGE, RCNN_DATA,
                                                      meta_test_cfg,
@@ -1240,14 +1275,20 @@ def time_real_decode(inputs, reps: int):
     return ms, bound, plain_ms
 
 
+def lvis_tree(work: str) -> None:
+    """The synthetic LVIS tree of the two-stage phases, written once."""
+    lvis_root = os.path.join(work, "lvis")
+    if not os.path.isdir(lvis_root):
+        make_synthetic_lvis(lvis_root, os.path.join(work, "lvis_images"),
+                            **RCNN_DATA)
+    register_all_lvis(lvis_root, os.path.join(work, "lvis_images"))
+
+
 def phase_rcnn_meta_test(work: str):
     """Phase 11; returns the readings of its two main-path windows (the
     meta-test's and the 337-row bank's: launches, and launches by route) by
     path, and the ``rcnn`` line's meta-test part."""
-    lvis_root = os.path.join(work, "lvis")
-    make_synthetic_lvis(lvis_root, os.path.join(work, "lvis_images"),
-                        **RCNN_DATA)
-    register_all_lvis(lvis_root, os.path.join(work, "lvis_images"))
+    lvis_tree(work)
     cfg = rcnn_meta_test_cfg(os.path.join(work, "rcnn_out"))
     name = cfg.DATASETS.TEST[0]
     runner = MetaFasterRCNNRunner()
@@ -2289,6 +2330,477 @@ def phase_variants_card_vs_cpu(devices=("cuda", "cpu")) -> None:
     phase_train_card_vs_cpu(devices, cases=[("roi_encoder episodic", cfg)])
 
 
+# ------------------------------------------- data parallelism (21-23)
+DP_WORLD = 2
+DP_TIMEOUT = 600     # s, the children of phases 21-22 together
+DP_NAME = "coco_meta_val_all"  # 6 classes: 3 a rank
+DP_CLASS_BATCH = 2   # one rank: 3 calls; two: 2 + a padded 1 on each
+TWO_SHARE = ("two ranks share one card over gloo: the times show the "
+             "plumbing, not a speed-up")
+
+
+def _exact_fp32() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _dp_codes(model, group, dev="cuda"):
+    """Raw codes of DP_NAME's classes, the dataset loaded under one seed:
+    single-process without ``group``, sharded with it."""
+    cfg = meta_test_cfg("")
+    with temp_seed(0):
+        data = DatasetCatalog.get(DP_NAME)
+    ds = MetaDataset(data, "episodic_test_supportset",
+                     num_shot=cfg.MODEL.META_LEARN.EVAL_SHOT)
+    rank, world = (group.rank, group.world) if group else (0, 1)
+    loader = build_support_set_loader(ds, _mapper(cfg), rank=rank,
+                                      world_size=world)
+    if group is None:
+        return meta_eval.generate_class_codes(
+            model, loader, class_batch=DP_CLASS_BATCH, device=dev)
+    return meta_eval.generate_class_codes_sharded(
+        model, loader, group, class_batch=DP_CLASS_BATCH, device=dev)
+
+
+def _code_arrays(codes):
+    return {c: {k: np.asarray(v) for k, v in d["code"].items()}
+            for c, d in sorted(codes.items())}
+
+
+def _fp32_meta_model():
+    cfg = meta_test_cfg("")
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return create_runner("MetaFCOSRunner").build_model(cfg)
+
+
+def _digest(model) -> str:
+    h = hashlib.sha256()
+    for name, p in model.state_dict().items():
+        h.update(name.encode())
+        h.update(p.detach().cpu().reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _dp_train_cfgs(grad_accum_one: int, grad_accum_dp: int, rcnn: bool):
+    """(one process's, each rank's) fp32 config of a two-step run."""
+    cfgs = []
+    for ga in (grad_accum_one, grad_accum_dp):
+        cfg = (rcnn_train_cfg("episodic", 2) if rcnn
+               else train_cfg("episodic", 2))
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+        cfg.TPU.GRAD_ACCUM = ga
+        cfgs.append(cfg)
+    return cfgs
+
+
+def run_ranks(work: str, name: str, timeout: float = DP_TIMEOUT, **args):
+    """Start DP_WORLD children of this script through torchrun, each running
+    ``CHILDREN[name](group, out, **args)`` as one rank (gloo, every rank on
+    cuda:0); -> each rank's result. A child that fails, or a run past
+    ``timeout``, raises; every process is ended."""
+    out = os.path.join(work, "ranks", name)
+    os.makedirs(out)
+    torch.save(dict(args, work=work), os.path.join(out, "args.pt"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={DP_WORLD}", os.path.abspath(__file__),
+           "--child", name, "--out", out]
+    log_path = os.path.join(out, "ranks.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = f"killed after {timeout} s"
+    with open(log_path) as f:
+        text = f.read()
+    for line in text.splitlines():
+        if line.startswith("[rank"):
+            log(line)
+    if rc != 0:
+        log(text[-8000:])
+        raise AssertionError(f"ranks of {name}: exit {rc}")
+    log(f"[ranks] {name}: {DP_WORLD} ranks in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(DP_WORLD)]
+
+
+def _rank_log(group, msg: str) -> None:
+    log(f"[rank{group.rank}] {msg}")
+
+
+def child_meta_test(group, work: str):
+    """Phase 21 on one rank: fp32 sharded codes, then the bf16 meta-test
+    with the sharded bank as a main-path window, every decode replayed with
+    the twin."""
+    _exact_fp32()
+    coco_tree(work)
+    codes = _code_arrays(_dp_codes(_fp32_meta_model(), group))
+    cfg = meta_test_cfg(os.path.join(work, "dp_meta_test"))
+    runner = create_runner("MetaFCOSRunner", group=group)
+    model = runner.build_model(cfg)
+    # warm-up: the bf16 registration and one query batch's plans
+    _dp_codes(model, group)
+    recorded = []
+    decode = meta_eval.decode_proposals
+
+    def recording(*args, **kwargs):
+        det = decode(*args, **kwargs)
+        recorded.append((args, kwargs, det))
+        return det
+
+    meta_eval.decode_proposals = recording
+    try:
+        # ---- the main path: counts are read around this block alone
+        reset_counts()
+        results = runner.do_test(cfg, model)
+        counts = read_counts(f"dp_meta_test rank {group.rank}")
+        # ---- end of the main path
+    finally:
+        meta_eval.decode_proposals = decode
+    for i, (args, kwargs, det) in enumerate(recorded):
+        want = decode(*args, **dict(kwargs, nms_impl="reference"))
+        check_detections_equal(det, want, f"rank {group.rank} batch {i}")
+    stats = {name: dict(d.stats) for name, d in runner.drivers.items()}
+    for name, res in results.items():
+        meta = runner.drivers[name].dataset_dict["metadata"]
+        check_ap_dict(name, res["bbox"], meta["thing_classes"])
+    _rank_log(group, f"meta-test: {counts[0]} NMS launches, each equal to "
+              f"the twin; {len(recorded)} decodes")
+    return {"codes": codes, "counts": counts, "stats": stats,
+            "results": {n: r["bbox"] for n, r in results.items()},
+            "batches": len(recorded)}
+
+
+def _train_result(group, runner, model, state):
+    return {"losses": runner.train_metrics, "loop_times": runner.loop_times,
+            "digest": _digest(model),
+            "trainable": {n: p.detach().cpu() for n, p in
+                          model.named_parameters() if n in state.tx.names},
+            "peak_memory_gb": peak_memory_gb()}
+
+
+def dp_resume(cfg, runner, state, group) -> str:
+    """Rank 0's last checkpoint restored on this rank into a fresh model,
+    bit-equal to the trained state; one step from each on the same batch:
+    equal (1e-5)."""
+    loader = runner._episodic_loader(cfg)
+    batch = next(loader)
+    loader.close()
+    fresh = runner.build_model(cfg, init="train")
+    resumed, _, _ = runner._common_train_setup(cfg, fresh)
+    if resumed.step != state.step:
+        raise AssertionError(f"restored step {resumed.step}, trained "
+                             f"{state.step}")
+    for (n, a), b in zip(state.model.state_dict().items(),
+                         fresh.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"restored {n} differs")
+    step = state.step
+    runner.make_train_step(cfg, state.model)(state, batch)
+    runner.make_train_step(cfg, fresh)(resumed, batch)
+    worst = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(state.model.state_dict().values(),
+                                fresh.state_dict().values()))
+    worst_m = max(float((a - b).abs().max())
+                  for a, b in zip(state.tx.trace, resumed.tx.trace))
+    if worst > 1e-5 or worst_m > 1e-5:
+        raise AssertionError(f"resumed step differs: params {worst}, "
+                             f"momentum {worst_m}")
+    return (f"rank 0's step-{step} checkpoint restored bit-equal, and "
+            f"one more step equals the uninterrupted one (params within "
+            f"{worst:.2e}, momentum within {worst_m:.2e})")
+
+
+def _chunks(calls, n: int):
+    """``calls`` cut into n equal runs (a micro-group's calls each)."""
+    per = len(calls) // n
+    if per * n != len(calls):
+        raise AssertionError(f"{len(calls)} calls do not make {n} groups")
+    return [calls[i * per:(i + 1) * per] for i in range(n)]
+
+
+def child_train(group, work: str, episodic_cfg, rcnn_cfg, rcnn_reference):
+    """Phase 22 on one rank: the one-stage episodic run and its resume,
+    then the two-stage run, fp32, TF32 off."""
+    _exact_fp32()
+    coco_tree(work)
+    lvis_tree(work)
+    out = {}
+    cfg = episodic_cfg.clone()
+    cfg.OUTPUT_DIR = os.path.join(work, "dp_train")
+    cfg.SOLVER.CHECKPOINT_PERIOD = 1
+    runner = MetaFCOSRunner(group=group)
+    model = runner.build_model(cfg, init="train")
+    torch.cuda.reset_peak_memory_stats()
+    _, state = runner.do_train(cfg, model)
+    out["episodic"] = _train_result(group, runner, model, state)
+    out["episodic"]["resume"] = dp_resume(cfg, runner, state, group)
+
+    runner = MetaFasterRCNNRunner(group=group)
+    model = runner.build_model(rcnn_cfg, init="train")
+    torch.cuda.reset_peak_memory_stats()
+    ref = [rcnn_reference[it * DP_WORLD + group.rank]
+           for it in range(rcnn_cfg.SOLVER.MAX_ITER)]
+    with _SharedProposals(ref) as props, _Tap("match_anchors") as anchors, \
+            _Tap("sample_rois") as rois, NMSRecorder() as rec:
+        # ---- the main path: counts are read around this block alone
+        reset_counts()
+        _, state = runner.do_train(rcnn_cfg, model)
+        counts = read_counts(f"dp_rcnn_train rank {group.rank}")
+        # ---- end of the main path
+    n_calls, shapes = rec.check(f"dp_rcnn_train rank {group.rank}")
+    if counts[0] != n_calls or counts[0] != rcnn_cfg.SOLVER.MAX_ITER:
+        raise AssertionError(f"rank {group.rank}: {counts} NMS launches, "
+                             f"{n_calls} calls")
+    _rank_log(group, f"two-stage: {counts[0]} RPN NMS launches {shapes}, "
+              "each equal to the twin")
+    out["rcnn"] = dict(_train_result(group, runner, model, state),
+                       counts=counts, anchors=anchors.calls,
+                       rois=rois.calls, differed=props.differed)
+    return out
+
+
+CHILDREN = {"meta_test": child_meta_test, "train": child_train}
+
+
+def child_main(argv) -> int:
+    """One rank of ``run_ranks``: torchrun's environment names it."""
+    os.environ.pop("SYLPH_TEST_MODE", None)
+    name = argv[argv.index("--child") + 1]
+    out = argv[argv.index("--out") + 1]
+    args = torch.load(os.path.join(out, "args.pt"), weights_only=False)
+    group = create_mesh("cuda:0", backend="gloo")
+    try:
+        result = CHILDREN[name](group, **args)
+        torch.save(result, os.path.join(out, f"rank{group.rank}.pt"))
+    finally:
+        group.close()
+    return 0
+
+
+def _close(a, b, what: str, atol: float) -> float:
+    worst = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    if not worst <= atol:
+        raise AssertionError(f"{what}: differs by {worst} (atol {atol})")
+    return worst
+
+
+def _check_losses(got, want, what: str, rtol: float = 1e-3) -> float:
+    """-> the largest relative difference."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} steps, want {len(want)}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            rel = abs(g[k] - w[k]) / abs(w[k])
+            if not (np.isfinite(g[k]) and rel <= rtol):
+                raise AssertionError(f"{what} step {i} {k}: {g[k]} vs {w[k]}")
+            worst = max(worst, rel)
+    return worst
+
+
+def _same_results(a: dict, b: dict) -> bool:
+    """Two {dataset: AP dict}s equal key for key, NaN (an AP with no ground
+    truth) equal to NaN."""
+    return a.keys() == b.keys() and all(
+        a[n].keys() == b[n].keys() and all(
+            x == y or (isinstance(x, float) and math.isnan(x)
+                       and math.isnan(y)) for x, y in
+            ((a[n][k], b[n][k]) for k in a[n])) for n in a)
+
+
+def _dp_train_line(mode: str, config: str, cfg, ranks, key: str,
+                   one_times, card: str):
+    line = {"train": mode, "config": config, "world": DP_WORLD,
+            "backend": "gloo", "batch": cfg.SOLVER.IMS_PER_BATCH,
+            "grad_accum_per_rank": cfg.TPU.GRAD_ACCUM, "dtype": "float32",
+            "one_process_step_ms": [1e3 * (d + s) for d, s in one_times],
+            "note": TWO_SHARE, "card": card}
+    for r, res in enumerate(ranks):
+        times = res[key]["loop_times"]
+        line[f"rank{r}"] = {
+            "step_ms": [1e3 * (d + s) for d, s in times],
+            "data_wait_ms": [1e3 * d for d, _ in times],
+            "peak_memory_gb": res[key]["peak_memory_gb"]}
+    line["losses"] = ranks[0][key]["losses"]
+    return line
+
+
+def phase_dp(work: str, card: str):
+    """Phases 21-22: the references in this process, then one torchrun of
+    DP_WORLD children per phase; -> (counts by path, the ``dp`` line, the
+    ``train`` lines)."""
+    _exact_fp32()
+    coco_tree(work)
+    lvis_tree(work)
+    # ---- phase 21: the references, one process
+    model = _fp32_meta_model()
+    one = _code_arrays(_dp_codes(model, None))
+    group = create_mesh("cuda:0", "nccl",
+                        init_method="file://" + os.path.join(work, "nccl1"),
+                        rank=0, world_size=1)
+    try:
+        nccl = _code_arrays(_dp_codes(model, group))
+    finally:
+        group.close()
+    for c, code in one.items():
+        for k, v in code.items():
+            if not np.array_equal(nccl[c][k], v):
+                raise AssertionError(f"NCCL world 1: class {c} {k} differs")
+    log(f"[dp-meta-test] {DP_NAME}: {len(one)} classes; NCCL at world 1 "
+        "through generate_class_codes_sharded equals the one process "
+        "exactly (fp32)")
+    del model
+    cfg = meta_test_cfg("")
+    single_model = create_runner("MetaFCOSRunner").build_model(cfg)
+    _dp_codes(single_model, None)  # warm-up
+    st = {}
+    with temp_seed(0):
+        data = DatasetCatalog.get(DP_NAME)
+    ds = MetaDataset(data, "episodic_test_supportset",
+                     num_shot=cfg.MODEL.META_LEARN.EVAL_SHOT)
+    meta_eval.generate_class_codes(
+        single_model, build_support_set_loader(ds, _mapper(cfg)),
+        class_batch=cfg.TPU.CLASS_BATCH, stats=st)
+    single_ms = 1e3 * (st["support_wait_s"] + st["codegen_s"]) / st["classes"]
+    single_codegen_ms = 1e3 * st["codegen_s"] / st["classes"]
+    del single_model
+    torch.cuda.empty_cache()
+
+    ranks = run_ranks(work, "meta_test")
+    code_err = 0.0
+    for r, res in enumerate(ranks):
+        for c, code in one.items():
+            for k, v in code.items():
+                got = res["codes"][c][k]
+                code_err = max(code_err, float(np.abs(got - v).max()))
+                if not np.allclose(got, v, rtol=1e-4, atol=1e-5):
+                    raise AssertionError(f"rank {r} class {c} {k}: "
+                                         f"{np.abs(got - v).max()}")
+                if not np.array_equal(got, ranks[0]["codes"][c][k]):
+                    raise AssertionError(f"rank {r}'s bank differs from "
+                                         "rank 0's")
+        if not _same_results(res["results"], ranks[0]["results"]):
+            raise AssertionError(f"rank {r}'s AP dicts differ from rank 0's")
+    dp_counts = {"dp_meta_test": (
+        sum(r["counts"][0] for r in ranks),
+        {k: sum(r["counts"][1][k] for r in ranks)
+         for k in ranks[0]["counts"][1]})}
+    shard = [sum(s["support_wait_s"] + s["codegen_s"] + s["gather_s"]
+                 for s in r["stats"].values()) for r in ranks]
+    classes = sum(s["classes"] for r in ranks for s in r["stats"].values())
+    gather_ms = [1e3 * sum(s["gather_s"] for s in r["stats"].values())
+                 for r in ranks]
+    codegen = [sum(s["codegen_s"] for s in r["stats"].values())
+               for r in ranks]
+    dp_line = {"dp": "meta_test", "config": os.path.basename(CONFIG),
+               "world": DP_WORLD, "backend": "gloo", "dtype": "bfloat16",
+               "datasets": sorted(ranks[0]["results"]),
+               "nms_launches": dp_counts["dp_meta_test"][0],
+               "nms_launches_by_rank": [r["counts"][0] for r in ranks],
+               "ms_per_class_single": single_ms,
+               "ms_per_class_sharded": 1e3 * max(shard) / classes,
+               "codegen_ms_per_class_single": single_codegen_ms,
+               "codegen_ms_per_class_sharded": 1e3 * max(codegen) / classes,
+               "all_gather_ms": gather_ms, "note": TWO_SHARE, "card": card}
+    log(f"[dp-meta-test] world 2 over gloo: codes within {code_err:.2e} of "
+        f"the one process (fp32; limit rtol 1e-4 / atol 1e-5), the banks and "
+        f"AP dicts of both "
+        f"ranks identical; bf16 meta-test {dp_line['nms_launches']} NMS "
+        f"launches, each equal to the twin; registration "
+        f"{single_ms:.2f} ms/class alone, "
+        f"{dp_line['ms_per_class_sharded']:.2f} sharded, all-gather "
+        f"{gather_ms} ms ({TWO_SHARE})")
+
+    # ---- phase 22: the references, one process
+    ep_one, ep_dp = _dp_train_cfgs(16, 8, rcnn=False)
+    runner = MetaFCOSRunner()
+    model = runner.build_model(ep_one, init="train")
+    _, state = runner.do_train(ep_one, model)
+    ep_ref = (runner.train_metrics,
+              {n: p.detach().cpu() for n, p in model.named_parameters()
+               if n in state.tx.names})
+    ep_times = runner.loop_times
+    del runner, model, state
+    rc_one, rc_dp = _dp_train_cfgs(DP_WORLD, 1, rcnn=True)
+    runner = MetaFasterRCNNRunner()
+    model = runner.build_model(rc_one, init="train")
+    with _SharedProposals() as props, _Tap("match_anchors") as anchors, \
+            _Tap("sample_rois") as rois:
+        _, state = runner.do_train(rc_one, model)
+    rc_ref = (runner.train_metrics,
+              {n: p.detach().cpu() for n, p in model.named_parameters()
+               if n in state.tx.names}, anchors.calls, rois.calls)
+    rc_times = runner.loop_times
+    del runner, model, state
+    torch.cuda.empty_cache()
+
+    ranks = run_ranks(work, "train", episodic_cfg=ep_dp,
+                      rcnn_cfg=rc_dp, rcnn_reference=props.calls)
+    lines = []
+    for key, (losses, params), cfg in (
+            ("episodic", ep_ref, ep_dp), ("rcnn", rc_ref[:2], rc_dp)):
+        if ranks[0][key]["digest"] != ranks[1][key]["digest"]:
+            raise AssertionError(f"{key}: the ranks' parameters differ")
+        rel = _check_losses(ranks[0][key]["losses"], losses, f"dp {key}")
+        worst = max(_close(ranks[0][key]["trainable"][n], p, f"dp {key} {n}",
+                           1e-4) for n, p in params.items())
+        log(f"[dp-train] {key}: world 2 x GRAD_ACCUM {cfg.TPU.GRAD_ACCUM} "
+            f"against one process x {cfg.TPU.GRAD_ACCUM * DP_WORLD}: losses "
+            f"within {rel:.2e} relative (limit 1e-3), trained parameters "
+            f"within {worst:.2e} (limit 1e-4), both ranks' parameters "
+            "bit-identical")
+    # rank r's step ``it`` is the one process's group it * DP_WORLD + r
+    steps = rc_dp.SOLVER.MAX_ITER
+    _, _, anc_one, roi_one = rc_ref
+    for r, res in enumerate(ranks):
+        rc = res["rcnn"]
+        if rc["differed"]:
+            log(f"[dp-train] rank {r}: proposals differ from the one "
+                f"process's in calls {rc['differed']}; those calls continue "
+                "from its proposals")
+        for mine, want, what in ((rc["anchors"], anc_one, "anchor labels"),
+                                 (rc["rois"], roi_one, "sampled ROIs")):
+            want = _chunks(want, steps * DP_WORLD)
+            for it, calls in enumerate(_chunks(mine, steps)):
+                ref = want[it * DP_WORLD + r]
+                if len(calls) != len(ref) or not all(
+                        torch.equal(x, y) for c, w in zip(calls, ref)
+                        for x, y in zip(c, w)):
+                    raise AssertionError(f"rank {r} step {it}: {what} "
+                                         "differ")
+    log(f"[dp-train] two-stage: anchor labels and sampled ROI sets of every "
+        "rank and step equal the one process's group's")
+    dp_counts["dp_rcnn_train"] = (
+        sum(r["rcnn"]["counts"][0] for r in ranks),
+        {k: sum(r["rcnn"]["counts"][1][k] for r in ranks)
+         for k in ranks[0]["rcnn"]["counts"][1]})
+    for r, res in enumerate(ranks):
+        log(f"[dp-train] rank {r}: {res['episodic']['resume']}")
+    lines.append(_dp_train_line("dp_episodic", os.path.basename(CONFIG),
+                                ep_dp, ranks, "episodic", ep_times, card))
+    lines.append(_dp_train_line("dp_rcnn_episodic",
+                                "Meta-RCNN-FPN-finetune.yaml", rc_dp, ranks,
+                                "rcnn", rc_times, card))
+    return dp_counts, dp_line, lines
+
+
+def phase_registration(card: str):
+    """Phase 23: ``bench_registration`` on the card, bf16: 1203 classes at
+    CLASS_BATCH and 64 one per call; -> the ``registration`` line."""
+    result = bench_registration.main(["--classes", "1203", "--single"])
+    line = {"registration": "bench_registration", **result, "card": card}
+    log(f"[registration] 1203 classes: {result['ms_per_class']:.3f} ms per "
+        f"class at {result['class_batch']} per call, "
+        f"{result['ms_per_class_single']:.3f} one per call")
+    return line
+
+
 def main() -> int:
     os.environ.pop("SYLPH_TEST_MODE", None)  # it would cut the query set
     if not torch.cuda.is_available():
@@ -2334,6 +2846,10 @@ def main() -> int:
         dcn_counts, dcn_serve, dcn_train = phase_dcn(work, card)
         phase_variants_card_vs_cpu()
         log(f"[time] phases 17-20: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp_counts, dp_line, dp_train_lines = phase_dp(work, card)
+        registration_line = phase_registration(card)
+        log(f"[time] phases 21-23: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[time] every phase, the builds included: "
@@ -2344,7 +2860,7 @@ def main() -> int:
     counts = {"serve": serve_counts, "meta_test": meta_counts, **rcnn_counts,
               "rcnn_plain": plain_counts, "rcnn_train_episodic": ep_counts,
               "rcnn_train_pretrain": rpre_counts, "rcnn_train_tfa": tfa_counts,
-              **roi_counts, **tfa1_counts, **dcn_counts}
+              **roi_counts, **tfa1_counts, **dcn_counts, **dp_counts}
     by_path = {path: n for path, (n, _) in counts.items()}
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the NMS kernel: "
@@ -2373,7 +2889,8 @@ def main() -> int:
     print(json.dumps(episodic_line), flush=True)
     print(json.dumps(pretrain_line), flush=True)
     for line in (ep_line, rpre_line, tfa_line, roi_serve, roi_train,
-                 *tfa1_lines, dcn_serve, dcn_train):
+                 *tfa1_lines, dcn_serve, dcn_train, *dp_train_lines, dp_line,
+                 registration_line):
         print(json.dumps(line), flush=True)
     print(json.dumps(rcnn_line), flush=True)
     print(card, flush=True)
@@ -2385,4 +2902,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(child_main(sys.argv) if "--child" in sys.argv else main())

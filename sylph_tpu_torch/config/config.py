@@ -121,12 +121,22 @@ class CfgNode(dict):
                 value = yaml.safe_load(value)
             node[leaf] = value
 
+    def __reduce__(self):
+        """Pickles as its plain dict (a data-parallel rank receives its
+        config this way), frozen or not as it was."""
+        return _unpickle, (self.to_dict(), self.is_frozen())
+
     # -- dump ---------------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
         return {k: (v.to_dict() if isinstance(v, CfgNode) else v) for k, v in self.items()}
 
     def dump(self) -> str:
         return yaml.safe_dump(self.to_dict(), sort_keys=True)
+
+
+def _unpickle(d: Dict[str, Any], frozen: bool) -> CfgNode:
+    cfg = CfgNode(d)
+    return cfg.freeze() if frozen else cfg
 
 
 def _load_yaml_with_base(path: str) -> Dict[str, Any]:

@@ -10,6 +10,12 @@ depth must copy it. ``evaluation/meta_eval.py`` copies every query batch to
 the model's device (a real copy on the CPU too) before the slot can come
 round again; the train loaders, given ``device=``, make that copy on their
 own worker thread, so the copy of batch i+1 overlaps the step on batch i.
+
+The train loaders take ``rank`` and ``world_size`` for data parallelism:
+every rank draws the whole global batch (its classes or images, records
+and per-record seeds, which are cheap), then maps only its contiguous
+slice, so each rank's batch is byte-equal to that slice of the batch one
+process would make, and decoding is split across the ranks.
 """
 
 from __future__ import annotations
@@ -119,11 +125,21 @@ def batch_to_device(batch: Dict[str, np.ndarray],
             for k, v in batch.items()}
 
 
+def _rank_slice(n: int, rank: int, world_size: int) -> slice:
+    """The contiguous ``rank``-th of ``world_size`` equal parts of n."""
+    if n % world_size:
+        raise ValueError(f"a global batch of {n} does not split over "
+                         f"{world_size} ranks")
+    per = n // world_size
+    return slice(rank * per, (rank + 1) * per)
+
+
 def build_episodic_train_loader(
     dataset: MetaDataset, mapper: EpisodicMapper, *, episodes_per_batch: int,
     seed: int = 0, sampler: str = "TrainingSampler",
     repeat_thresh: float = 0.001, prefetch: int = 2, retain: int = 2,
     device: Optional[Union[str, torch.device]] = None,
+    rank: int = 0, world_size: int = 1,
 ) -> Iterator[Dict]:
     """Infinite episodic batches (reference
     build_meta_detection_train_loader, data/build.py:424-492): E episodes,
@@ -132,7 +148,8 @@ def build_episodic_train_loader(
 
     ``retain``: the most batches the consumer holds at once; it sizes the
     buffer ring. Per-record seeds keep the result independent of the order
-    in which the pool finishes."""
+    in which the pool finishes. ``rank`` of ``world_size``: this rank's
+    contiguous slice of the E episodes."""
     if sampler == "RepeatFactorTrainingSampler":
         counts = {c: len(dataset.support[c]) for c in dataset.classes}
         class_iter = iter(RepeatFactorClassSampler(
@@ -140,17 +157,28 @@ def build_episodic_train_loader(
     else:
         class_iter = iter(TrainingClassSampler(len(dataset.classes), seed))
     rng = np.random.RandomState(seed + 1)
+    e = episodes_per_batch
+    mine = _rank_slice(e, rank, world_size)
 
     def gen():
         sup_pool = qry_pool = None
         while True:
             sup_recs, qry_recs, class_ids = [], [], []
-            for _ in range(episodes_per_batch):
+            for _ in range(e):
                 ci = next(class_iter)
                 item = dataset._train_item(ci)
                 class_ids.append(item["support_set_target"])
                 sup_recs.extend(item["support_set"])
                 qry_recs.extend(item["query_set"])
+            seeds = rng.randint(0, 2 ** 31, len(sup_recs) + len(qry_recs))
+            sup_seeds, qry_seeds = (seeds[:len(sup_recs)],
+                                    seeds[len(sup_recs):])
+            ns, nq = len(sup_recs) // e, len(qry_recs) // e  # per episode
+            sup_sl = slice(mine.start * ns, mine.stop * ns)
+            qry_sl = slice(mine.start * nq, mine.stop * nq)
+            sup_recs, sup_seeds = sup_recs[sup_sl], sup_seeds[sup_sl]
+            qry_recs, qry_seeds = qry_recs[qry_sl], qry_seeds[qry_sl]
+            class_ids = class_ids[mine]
             if sup_pool is None:
                 sup_pool = _BufferPool(
                     (len(sup_recs), *mapper.support_canvas, 3),
@@ -159,17 +187,14 @@ def build_episodic_train_loader(
                     (len(qry_recs), *mapper.train_canvas, 3),
                     depth=retain + prefetch + 4)
             sup_buf, qry_buf = sup_pool.next(), qry_pool.next()
-            seeds = rng.randint(0, 2 ** 31, len(sup_recs) + len(qry_recs))
             sup_f = [_POOL.submit(
                 mapper.map_support, r, np.random.RandomState(s), True,
                 sup_buf[i])
-                for i, (r, s) in enumerate(
-                    zip(sup_recs, seeds[:len(sup_recs)]))]
+                for i, (r, s) in enumerate(zip(sup_recs, sup_seeds))]
             qry_f = [_POOL.submit(
                 mapper.map_query_train, r, np.random.RandomState(s),
                 qry_buf[i])
-                for i, (r, s) in enumerate(
-                    zip(qry_recs, seeds[len(sup_recs):]))]
+                for i, (r, s) in enumerate(zip(qry_recs, qry_seeds))]
             sup = [f.result() for f in sup_f]
             qmaps = [f.result() for f in qry_f]
             batch = {
@@ -201,11 +226,13 @@ def build_pretrain_loader(
     sampler: str = "TrainingSampler", repeat_thresh: float = 0.001,
     prefetch: int = 2, retain: int = 2,
     device: Optional[Union[str, torch.device]] = None,
+    rank: int = 0, world_size: int = 1,
 ) -> Iterator[Dict]:
     """Plain detection batches for pretraining: epoch-shuffled, or
     image-level repeat-factor sampled (DATALOADER.SAMPLER_TRAIN ==
     RepeatFactorTrainingSampler). Records without annotations are dropped
-    (detectron2's train-time filter)."""
+    (detectron2's train-time filter). ``rank`` of ``world_size``: this
+    rank's contiguous slice of the ``batch_size`` images."""
     records = [r for r in records if r.get("annotations")]
     if sampler == "RepeatFactorTrainingSampler":
         idx_iter = iter(RepeatFactorImageSampler(
@@ -213,14 +240,16 @@ def build_pretrain_loader(
     else:
         idx_iter = iter(EpochShuffleSampler(len(records), seed))
     rng = np.random.RandomState(seed + 1)
+    mine = _rank_slice(batch_size, rank, world_size)
 
     def gen():
-        pool = _BufferPool((batch_size, *mapper.train_canvas, 3),
+        pool = _BufferPool((mine.stop - mine.start, *mapper.train_canvas, 3),
                            depth=retain + prefetch + 4)
         while True:
             buf = pool.next()
             idx = [next(idx_iter) for _ in range(batch_size)]
             seeds = rng.randint(0, 2 ** 31, len(idx))
+            idx, seeds = idx[mine], seeds[mine]
             futs = [_POOL.submit(
                 mapper.map_query_train, records[i],
                 np.random.RandomState(s), buf[j])

@@ -9,7 +9,10 @@
   (with the CUDA NMS kernel on the card), postprocess into the evaluator.
 
 ``MetaTestDriver.run_repeated`` reproduces the REPEAT_TEST mean±std
-aggregation (reference meta_fcos_runner.py:597-631).
+aggregation (reference meta_fcos_runner.py:597-631). Given a data-parallel
+group of more than one rank (``mesh=``), phase 1 is sharded over the ranks
+(``generate_class_codes_sharded``); phase 2 is not, as in the JAX package:
+every rank runs the whole query set.
 
 Every entry point takes ``device=`` (default ``"cuda"``, which raises
 without a card). Batches are copied to the device on a worker thread as
@@ -37,6 +40,7 @@ from ..data.loader import (_prefetch, build_query_loader,
                            build_support_set_loader)
 from ..data.meta_dataset import MetaDataset
 from ..ops.decode import DecodeCfg, decode_proposals
+from ..parallel.mesh import DataGroup, gather_class_codes
 from ..runner import resolve_device
 from .postprocess import detections_to_coco_results
 
@@ -103,6 +107,63 @@ def _save_code(save_dir: Optional[str], name: str,
         np.savez(os.path.join(save_dir, f"{name}.npz"), **code)
 
 
+def _class_groups(support_loader, class_batch: int, pad: bool):
+    """The loader's classes stacked ``class_batch`` at a time; ``pad``
+    zero-fills the tail group to ``class_batch`` classes (JAX
+    ``_pad_group``), whose padded rows the caller drops."""
+    group: List[Dict] = []
+
+    def stacked():
+        items = [(g["class_id"], g["class_name"]) for g in group]
+        while pad and len(group) < class_batch:
+            group.append({k: np.zeros_like(group[0][k])
+                          for k in _SUPPORT_KEYS})
+        out = {k: np.concatenate([g[k] for g in group])
+               for k in _SUPPORT_KEYS}
+        out["items"] = items
+        out["shot"] = len(group[0]["support_box_valid"])
+        group.clear()
+        return out
+
+    for item in support_loader:
+        group.append(item)
+        if len(group) == class_batch:
+            yield stacked()
+    if group:
+        yield stacked()
+
+
+def _class_code_calls(model, groups, class_batch: int, dev: torch.device,
+                      stats: Optional[Dict]):
+    """One ``forward_class_code`` call per group: yields (the group's
+    (class_id, class_name) items, its code rows on the device). A call's
+    time runs until the card has finished it and the caller has taken its
+    rows."""
+    times: List = []
+    t_wait = time.perf_counter()
+    for g in _device_prefetch(groups, _SUPPORT_KEYS, dev):
+        t0 = time.perf_counter()
+        _add(stats, "support_wait_s", t0 - t_wait)
+        with torch.inference_mode():
+            out = model.forward_class_code(g["support_images"],
+                                           g["support_boxes"],
+                                           g["support_box_valid"],
+                                           g["shot"], False)
+        yield g["items"], out
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        _add(stats, "codegen_s", dt)
+        _add(stats, "classes", len(g["items"]))
+        times.append((dt, len(g["items"])))
+        t_wait = time.perf_counter()
+    if len(times) > WARMUP:
+        t = sum(t for t, _ in times[WARMUP:])
+        n = sum(n for _, n in times[WARMUP:])
+        print(f"[meta-eval] code-gen: {t/max(n,1)*1e3:.2f} ms/class "
+              f"({class_batch} classes/call)")
+
+
 def generate_class_codes(model, support_loader, *,
                          save_dir: Optional[str] = None,
                          class_batch: int = 1,
@@ -120,59 +181,70 @@ def generate_class_codes(model, support_loader, *,
     padded. One class per call is ``class_batch=1``.
     """
     dev = resolve_device(device)
-
-    def groups():
-        group: List[Dict] = []
-
-        def stacked():
-            out = {k: np.concatenate([g[k] for g in group])
-                   for k in _SUPPORT_KEYS}
-            out["items"] = [(g["class_id"], g["class_name"]) for g in group]
-            out["shot"] = len(group[0]["support_box_valid"])
-            group.clear()
-            return out
-
-        for item in support_loader:
-            group.append(item)
-            if len(group) == class_batch:
-                yield stacked()
-        if group:
-            yield stacked()
-
     codes: Dict[int, Dict] = {}
-    times: List = []
-    t_wait = time.perf_counter()
-    for g in _device_prefetch(groups(), _SUPPORT_KEYS, dev):
-        t0 = time.perf_counter()
-        _add(stats, "support_wait_s", t0 - t_wait)
-        with torch.inference_mode():
-            out = model.forward_class_code(g["support_images"],
-                                           g["support_boxes"],
-                                           g["support_box_valid"],
-                                           g["shot"], False)
+    for items, out in _class_code_calls(
+            model, _class_groups(support_loader, class_batch, pad=False),
+            class_batch, dev, stats):
         bank = {k: _np_f32(v) for k, v in out.items()}
-        dt = time.perf_counter() - t0
-        _add(stats, "codegen_s", dt)
-        _add(stats, "classes", len(g["items"]))
-        times.append((dt, len(g["items"])))
-        for i, (cid, cname) in enumerate(g["items"]):
+        for i, (cid, cname) in enumerate(items):
             code = {k: v[i:i + 1] for k, v in bank.items()}
             codes[cid] = {"code": code, "class_name": cname}
             _save_code(save_dir, cname, code)
-        t_wait = time.perf_counter()
-    if len(times) > WARMUP:
-        t = sum(t for t, _ in times[WARMUP:])
-        n = sum(n for _, n in times[WARMUP:])
-        print(f"[meta-eval] code-gen: {t/max(n,1)*1e3:.2f} ms/class "
-              f"({class_batch} classes/call)")
     return codes
 
 
-def generate_class_codes_sharded(*args, **kwargs):
-    """Class-sharded registration over several cards (JAX
-    ``generate_class_codes_sharded``): multi-GPU work, not ported yet."""
-    raise NotImplementedError("class-sharded registration across cards is "
-                              "not ported yet")
+def generate_class_codes_sharded(model, support_loader, group: DataGroup, *,
+                                 save_dir: Optional[str] = None,
+                                 class_batch: int = 1,
+                                 device: Union[str, torch.device] = "cuda",
+                                 stats: Optional[Dict] = None
+                                 ) -> Dict[int, Dict]:
+    """PHASE 1 with the classes sharded over the ranks of ``group`` (JAX
+    ``generate_class_codes_sharded``; reference meta_fcos_runner.py:381-439).
+
+    ``support_loader`` yields this rank's share of the classes
+    (``build_support_set_loader(..., rank=group.rank,
+    world_size=group.world)``). Each rank registers its share
+    ``class_batch`` classes per call, its tail call zero-padded to
+    ``class_batch`` (the padded rows are dropped), then the ranks exchange
+    their (class_id, class_name) lists and all-gather their code rows, each
+    rank's padded to the longest share (``gather_class_codes``). Every rank
+    returns the same dict as ``generate_class_codes`` over all the classes;
+    rank 0 alone writes the ``.npz`` files. ``stats["gather_s"]`` is the
+    all-gather's wall time.
+    """
+    dev = resolve_device(device)
+    items: List = []
+    rows: Dict[str, List[torch.Tensor]] = {"cls_conv": [], "cls_bias": []}
+    for its, out in _class_code_calls(
+            model, _class_groups(support_loader, class_batch, pad=True),
+            class_batch, dev, stats):
+        items += its
+        for k in rows:
+            rows[k].append(out[k][:len(its)].float())
+    width = rows["cls_conv"][0].shape[1] if items else 0
+    shares = group.gather_objects((items, width))
+    n = max(len(its) for its, _ in shares)
+    width = max(w for _, w in shares)
+    local = {}
+    for k, shape in (("cls_conv", (n, width)), ("cls_bias", (n,))):
+        mine = (torch.cat(rows[k]) if items else
+                torch.zeros((0, *shape[1:]), device=dev))
+        local[k] = torch.cat([mine, mine.new_zeros(
+            (n - len(items), *shape[1:]))])
+    t0 = time.perf_counter()
+    bank = {k: _np_f32(v) for k, v in gather_class_codes(local,
+                                                         group).items()}
+    _add(stats, "gather_s", time.perf_counter() - t0)
+    codes: Dict[int, Dict] = {}
+    for r, (its, _) in enumerate(shares):
+        for j, (cid, cname) in enumerate(its):
+            i = r * n + j
+            code = {k: v[i:i + 1] for k, v in bank.items()}
+            codes[cid] = {"code": code, "class_name": cname}
+            if group.is_main:
+                _save_code(save_dir, cname, code)
+    return codes
 
 
 def normalize_class_codes(model, codes: Dict[int, Dict], *,
@@ -352,8 +424,11 @@ class MetaTestDriver:
     (reference TEST.REPEAT_TEST, meta_fcos_runner.py:480-631).
 
     ``infer_factory(model, bank) -> infer(images, sizes)`` overrides the
-    default one-stage decode path. After ``run_once`` the driver keeps the
-    normalized bank it served (``bank``) and its phase times (``stats``).
+    default one-stage decode path. ``mesh``: a ``DataGroup``; with more
+    than one rank, phase 1 is sharded over them
+    (``generate_class_codes_sharded``, JAX :479-482). After ``run_once``
+    the driver keeps the normalized bank it served (``bank``) and its phase
+    times (``stats``).
     """
 
     def __init__(self, model, dataset_dict, mapper, grid,
@@ -365,8 +440,10 @@ class MetaTestDriver:
                  eval_batch: int = 1,
                  infer_factory: Optional[Callable] = None,
                  class_batch: int = 1,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 mesh: Optional[DataGroup] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model
         self.dataset_dict = dataset_dict
         self.mapper = mapper
@@ -390,10 +467,18 @@ class MetaTestDriver:
         sup_ds = MetaDataset(self.dataset_dict, "episodic_test_supportset",
                              num_shot=self.eval_shot,
                              meta_test_seed=meta_test_seed)
-        codes = generate_class_codes(
-            self.model, build_support_set_loader(sup_ds, self.mapper),
-            save_dir=self.save_dir, class_batch=self.class_batch,
-            device=self.device, stats=stats)
+        if self.mesh is not None and self.mesh.world > 1:
+            codes = generate_class_codes_sharded(
+                self.model, build_support_set_loader(
+                    sup_ds, self.mapper, rank=self.mesh.rank,
+                    world_size=self.mesh.world), self.mesh,
+                save_dir=self.save_dir, class_batch=self.class_batch,
+                device=self.device, stats=stats)
+        else:
+            codes = generate_class_codes(
+                self.model, build_support_set_loader(sup_ds, self.mapper),
+                save_dir=self.save_dir, class_batch=self.class_batch,
+                device=self.device, stats=stats)
         meta = self.dataset_dict["metadata"]
         if self.use_all_gts_in_base:
             # base classes get all-GT accumulated codes; few-shot codes

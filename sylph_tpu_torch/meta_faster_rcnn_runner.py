@@ -13,7 +13,8 @@ two-phase meta-test with the two-stage query path
 (``evaluation/meta_eval.py::make_rcnn_infer``); the plain one evaluates the
 trained classifier through ``forward_base_instances``, with the anchors at
 the eval canvas. Everything runs on the runner's device (default
-``"cuda"``, which raises without a card).
+``"cuda"``, which raises without a card), or as one rank of a
+data-parallel group, as the one-stage runner does.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from .utils.convert_d2 import (convert_detectron2_checkpoint,
                                load_torch_state_dict)
 from .train.steps import (DrawsFactory, make_rcnn_episodic_train_step,
                           make_rcnn_pretrain_train_step)
-from .utils.tb_writer import write_eval_results_tb
+from .parallel.mesh import DataGroup
 
 
 def add_rcnn_config(cfg: CfgNode) -> CfgNode:
@@ -133,11 +134,13 @@ class MetaFasterRCNNRunner(MetaFCOSRunner):
     """Config, model, ``do_train`` and ``do_test`` for the two-stage
     detector. ``draws``: the sampling draw sources of training, a function
     (iteration, group, groups) -> source; by default
-    ``SampleDraws.for_step`` seeded from ``max(cfg.SEED, 0)``."""
+    ``SampleDraws.for_step`` seeded from ``max(cfg.SEED, 0)``, called with
+    the global micro-group index. ``group``: as for ``MetaFCOSRunner``."""
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
-                 draws: Optional[DrawsFactory] = None):
-        super().__init__(device=device)
+                 draws: Optional[DrawsFactory] = None,
+                 group: Optional[DataGroup] = None):
+        super().__init__(device=device, group=group)
         self.draws = draws
 
     @classmethod
@@ -181,7 +184,7 @@ class MetaFasterRCNNRunner(MetaFCOSRunner):
                   roi_batch=cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
                   seed=max(cfg.SEED, 0), draws=self.draws,
                   steps_per_call=cfg.TPU.STEPS_PER_CALL,
-                  grad_accum=max(1, cfg.TPU.GRAD_ACCUM))
+                  grad_accum=max(1, cfg.TPU.GRAD_ACCUM), group=self.group)
         grid = train_anchor_grid(cfg)
         if not cfg.MODEL.META_LEARN.EPISODIC_LEARNING:
             return make_rcnn_pretrain_train_step(model, grid, **kw)
@@ -211,13 +214,13 @@ class MetaFasterRCNNRunner(MetaFCOSRunner):
 
         if not cfg.MODEL.META_LEARN.EPISODIC_LEARNING:
             results = self._do_test_plain_rcnn(cfg, model)
-            write_eval_results_tb(results, cfg.OUTPUT_DIR, step)
+            self._write_tb(results, cfg, step)
             return results
         grid = eval_anchor_grid(cfg)
         results = {}
         for name in cfg.DATASETS.TEST:
             driver = MetaTestDriver(
-                model, DatasetCatalog.get(name), _mapper(cfg), None, None,
+                model, self._dataset(cfg, name), _mapper(cfg), None, None,
                 eval_shot=cfg.MODEL.META_LEARN.EVAL_SHOT,
                 evaluator_factory=lambda recs, meta, n=name:
                     self.get_evaluator(cfg, n, recs, meta),
@@ -226,10 +229,11 @@ class MetaFasterRCNNRunner(MetaFCOSRunner):
                 eval_batch=cfg.TPU.EVAL_BATCH,
                 infer_factory=lambda m, bank: self.make_infer(cfg, m, bank,
                                                               grid),
-                class_batch=cfg.TPU.CLASS_BATCH, device=self.device)
+                class_batch=cfg.TPU.CLASS_BATCH, device=self.device,
+                mesh=self.group)
             self.drivers[name] = driver
             results[name] = driver.run_repeated(cfg.TEST.REPEAT_TEST)
-        write_eval_results_tb(results, cfg.OUTPUT_DIR, step)
+        self._write_tb(results, cfg, step)
         return results
 
     def make_plain_infer(self, cfg, model, grid):

@@ -8,9 +8,10 @@ Pure functions over the flat ``(B, K, ...)`` head outputs:
   * ``fcos_episodic_losses`` (:496-637) with the per-episode one-hot class
     target and the optional distillation toward the pretrained cls_logits.
 
-The port runs on one card, so the loss normalizers are local; under
-``TPU.GRAD_ACCUM`` the train step passes the cross-micro-group values as
-``num_pos_avg``/``loss_denorm`` (train/steps.py).
+Without normalizers given, the losses normalize by the batch's own
+positives. The train steps pass ``loss_normalizers``: the mean over every
+micro-group of every rank (``TPU.GRAD_ACCUM`` groups on each rank of a
+``DataGroup``) as ``num_pos_avg``/``loss_denorm`` (train/steps.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import DataGroup, cross_rank_mean
 from .assigner import FCOSTargets, compute_ctrness_targets
 from .losses import (bce_with_logits, compute_ious_ltrb, iou_loss_ltrb,
                      sigmoid_focal_loss)
@@ -63,16 +65,19 @@ def _masked_sum(pos, x):
     return torch.where(pos, x, torch.zeros_like(x)).sum()
 
 
-def loss_normalizers(targets: FCOSTargets, m: int = 1):
-    """``(num_pos_avg, loss_denorm)`` over ``m`` micro-groups treated as
-    ranks: the positive count and the ctrness-target sum divided by m, each
-    clamped after the division (train/steps.py:52-80)."""
+def loss_normalizers(targets: FCOSTargets, m: int = 1,
+                     group: Optional[DataGroup] = None):
+    """``(num_pos_avg, loss_denorm)`` over ``m`` micro-groups on each rank of
+    ``group``, every group treated as a rank: the positive count and the
+    ctrness-target sum divided by m, averaged over the ranks, then clamped
+    (train/steps.py:52-80). Clamping before the mean would floor each rank
+    on its own, a different result on a batch with few positives."""
     pos = targets.labels >= 0
     ctr_t = compute_ctrness_targets(targets.reg_targets)
     ctr_t = torch.where(pos, ctr_t, torch.zeros_like(ctr_t))
-    num_pos_avg = torch.clamp(pos.float().sum() / m, min=1.0)
-    loss_denorm = torch.clamp(ctr_t.sum() / m, min=1e-6)
-    return num_pos_avg, loss_denorm
+    sums = cross_rank_mean(torch.stack([pos.float().sum(), ctr_t.sum()]) / m,
+                           group)
+    return torch.clamp(sums[0], min=1.0), torch.clamp(sums[1], min=1e-6)
 
 
 def fcos_pretrain_losses(

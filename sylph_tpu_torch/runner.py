@@ -20,6 +20,13 @@ The repo ships no checkpoint, so weights start from an explicit
 MODEL.WEIGHTS overlays a flat ``.npz`` of flax params (the JAX package's
 layout), one of the port's own checkpoints, or a detectron2 ``.pth`` /
 ``.pkl`` file (``utils/convert_d2.py``).
+
+A runner given a data-parallel ``group`` (``parallel/mesh.py``, one process
+per rank) trains on its rank's slice of every batch, averages gradients
+across the ranks each step, and shards the meta-test's registration over
+them; rank 0 alone writes checkpoints, metrics and TensorBoard events, and
+every rank restores behind a barrier. Every rank holds the same parameters
+after every step.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import logging
 import math
 import os
 import time
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -39,7 +46,7 @@ from .data.catalog import DatasetCatalog, MetadataCatalog
 from .data.loader import (_POOL, build_episodic_train_loader,
                           build_pretrain_loader)
 from .data.mapper import EpisodicMapper
-from .data.meta_dataset import MetaDataset
+from .data.meta_dataset import MetaDataset, temp_seed
 from .evaluation.evaluators import (AREvaluator, COCOMetaEvaluator,
                                     COCOOWDEvaluator, FewshotLVISEvaluator)
 from .evaluation.postprocess import detections_to_coco_results
@@ -53,6 +60,7 @@ from .ops.deform_conv import DFConv2d
 from .ops.decode import DecodeCfg, decode_proposals
 from .ops.fcos_losses import FCOSLossCfg
 from .ops.locations import build_location_grid
+from .parallel.mesh import DataGroup
 from .train.checkpoint import (CheckpointManager, filter_params_by_module,
                                load_params_any, merge_state_dict)
 from .train.optimizer import build_freeze_mask, build_optimizer
@@ -399,10 +407,14 @@ def _eval_grid(cfg):
 class MetaFCOSRunner:
     """Config, model, ``do_train`` (pretraining or episodic meta-training),
     evaluator dispatch and ``do_test`` on ``device`` (default ``"cuda"``,
-    which raises without a card)."""
+    which raises without a card), or on ``group.device`` as one rank of a
+    data-parallel ``group``."""
 
-    def __init__(self, device: Union[str, torch.device] = "cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, device: Union[str, torch.device] = "cuda",
+                 group: Optional[DataGroup] = None):
+        self.device = (group.device if group is not None
+                       else resolve_device(device))
+        self.group = group
         self.drivers: Dict[str, object] = {}
         # per iteration of the last do_train: (data wait s, step wait s)
         self.loop_times: list = []
@@ -410,6 +422,11 @@ class MetaFCOSRunner:
     @classmethod
     def get_default_cfg(cls) -> CfgNode:
         return get_default_cfg()
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes files: rank 0, or the only one."""
+        return self.group is None or self.group.is_main
 
     def build_model(self, cfg, init: str = "random") -> MetaOneStageDetector:
         """``build_model_from_cfg`` on the runner's device from ``cfg.SEED``
@@ -470,6 +487,8 @@ class MetaFCOSRunner:
         ckpt = (CheckpointManager(os.path.join(cfg.OUTPUT_DIR, "ckpt"))
                 if cfg.OUTPUT_DIR else None)
         if ckpt is not None:
+            if self.group is not None:
+                self.group.barrier()  # rank 0's last save is complete
             state, _ = ckpt.restore(state)
         n_train = sum(int(m) for m in build_freeze_mask(
             model, _freeze_cfg(cfg)).values())
@@ -481,11 +500,12 @@ class MetaFCOSRunner:
                     eval_fn=None):
         """Host loop: one step per batch, metrics, the abnormal-loss check,
         checkpoints every SOLVER.CHECKPOINT_PERIOD and at the end, and the
-        TEST.EVAL_PERIOD hook. ``self.loop_times`` keeps each iteration's
-        data wait and step wait (printed with SYLPH_TIME_LOOP=1)."""
+        TEST.EVAL_PERIOD hook; metrics and checkpoints on rank 0 alone.
+        ``self.loop_times`` keeps each iteration's data wait and step wait
+        (printed with SYLPH_TIME_LOOP=1)."""
         max_iter = cfg.SOLVER.MAX_ITER
         eval_period = cfg.TEST.EVAL_PERIOD
-        writer = MetricsWriter(cfg.OUTPUT_DIR)
+        writer = MetricsWriter(cfg.OUTPUT_DIR if self.is_main else None)
         checker = AbnormalLossChecker()
         time_loop = bool(os.environ.get("SYLPH_TIME_LOOP"))
         self.loop_times = []
@@ -508,7 +528,7 @@ class MetaFCOSRunner:
                 for key, msg in checker.check(m).items():
                     print(f"[abnormal-loss] {key}: {msg}")
                 writer.write(it, m, lr=schedule(it))
-                if ckpt is not None and (
+                if ckpt is not None and self.is_main and (
                         it % cfg.SOLVER.CHECKPOINT_PERIOD == 0
                         or it >= max_iter):
                     ckpt.save(it, state)
@@ -530,7 +550,7 @@ class MetaFCOSRunner:
         kw = dict(center_sample=cfg.MODEL.FCOS.CENTER_SAMPLE,
                   radius=cfg.MODEL.FCOS.POS_RADIUS,
                   steps_per_call=cfg.TPU.STEPS_PER_CALL,
-                  grad_accum=max(1, cfg.TPU.GRAD_ACCUM))
+                  grad_accum=max(1, cfg.TPU.GRAD_ACCUM), group=self.group)
         if not cfg.MODEL.META_LEARN.EPISODIC_LEARNING:
             return make_pretrain_train_step(model, grid, lc, **kw)
         return make_episodic_train_step(
@@ -577,24 +597,38 @@ class MetaFCOSRunner:
 
     # ------------------------------------------------------------- loaders
     def _episodic_loader(self, cfg):
+        """Episodic batches (this rank's slice of each)."""
         name = cfg.DATASETS.TRAIN[0]
-        ds = MetaDataset(DatasetCatalog.get(name), "episodic_train_both",
+        ds = MetaDataset(self._dataset(cfg, name), "episodic_train_both",
                          num_shot=cfg.MODEL.META_LEARN.SHOT,
                          num_query_shot=cfg.MODEL.META_LEARN.QUERY_SHOT)
         return build_episodic_train_loader(
             ds, _mapper(cfg), episodes_per_batch=cfg.SOLVER.IMS_PER_BATCH,
             seed=max(cfg.SEED, 0), sampler=cfg.DATALOADER.SAMPLER_TRAIN,
             repeat_thresh=cfg.DATALOADER.REPEAT_THRESHOLD,
-            device=self.device)
+            device=self.device, **self._loader_ranks())
+
+    def _dataset(self, cfg, name: str, **kwargs):
+        """``DatasetCatalog.get``; with several ranks under one numpy seed,
+        so that what a dataset draws from the global RNG as it loads (the
+        coco_meta_*_all splits' novel support) is the same on every rank."""
+        if self.group is None or self.group.world == 1:
+            return DatasetCatalog.get(name, **kwargs)
+        with temp_seed(max(cfg.SEED, 0)):
+            return DatasetCatalog.get(name, **kwargs)
+
+    def _loader_ranks(self) -> Dict[str, int]:
+        g = self.group
+        return {"rank": g.rank, "world_size": g.world} if g else {}
 
     def _pretrain_loader(self, cfg):
         """Plain detection batches from the pretrain dataset (few-shot
-        subsets honor MODEL.TFA.TRAIN_SHOT)."""
+        subsets honor MODEL.TFA.TRAIN_SHOT), this rank's slice of each."""
         name = cfg.DATASETS.TRAIN[0]
         try:
-            data = DatasetCatalog.get(name, shot=cfg.MODEL.TFA.TRAIN_SHOT)
+            data = self._dataset(cfg, name, shot=cfg.MODEL.TFA.TRAIN_SHOT)
         except TypeError:
-            data = DatasetCatalog.get(name)
+            data = self._dataset(cfg, name)
         if isinstance(data, dict) and "records" not in data:
             raise ValueError(
                 f"{name} is an episodic meta-dataset; the non-episodic "
@@ -605,7 +639,7 @@ class MetaFCOSRunner:
             records, _mapper(cfg), batch_size=cfg.SOLVER.IMS_PER_BATCH,
             seed=max(cfg.SEED, 0), sampler=cfg.DATALOADER.SAMPLER_TRAIN,
             repeat_thresh=cfg.DATALOADER.REPEAT_THRESHOLD,
-            device=self.device)
+            device=self.device, **self._loader_ranks())
 
     def get_evaluator(self, cfg, dataset_name: str, query_records, metadata):
         """Evaluator dispatch on the dataset's evaluator_type (reference
@@ -656,17 +690,19 @@ class MetaFCOSRunner:
         detector evaluation when the config is not episodic. Scalars go to
         ``{OUTPUT_DIR}/tb`` and raw codes to
         ``{OUTPUT_DIR}/class_codes/{dataset}/`` when OUTPUT_DIR is set.
-        The drivers stay in ``self.drivers`` (bank and phase times)."""
+        The drivers stay in ``self.drivers`` (bank and phase times). With a
+        group of several ranks, registration is sharded over them and every
+        rank scores the whole query set; rank 0 writes the files."""
         from .evaluation.meta_eval import MetaTestDriver
 
         if not cfg.MODEL.META_LEARN.EPISODIC_LEARNING:
             results = self._do_test_plain(cfg, model)
-            write_eval_results_tb(results, cfg.OUTPUT_DIR, step)
+            self._write_tb(results, cfg, step)
             return results
         results = {}
         grid = _eval_grid(cfg)
         for name in cfg.DATASETS.TEST:
-            dataset_dict = DatasetCatalog.get(name)
+            dataset_dict = self._dataset(cfg, name)
             # all-GT base-class codes only make sense on splits that
             # contain base classes (reference meta_fcos_runner.py:520-532)
             split = dataset_dict["metadata"].get("split", "")
@@ -682,11 +718,16 @@ class MetaFCOSRunner:
                 use_all_gts_in_base=use_base,
                 base_max_records=cfg.MODEL.META_LEARN.BASE_EVAL_SHOT * 10,
                 eval_batch=cfg.TPU.EVAL_BATCH,
-                class_batch=cfg.TPU.CLASS_BATCH, device=self.device)
+                class_batch=cfg.TPU.CLASS_BATCH, device=self.device,
+                mesh=self.group)
             self.drivers[name] = driver
             results[name] = driver.run_repeated(cfg.TEST.REPEAT_TEST)
-        write_eval_results_tb(results, cfg.OUTPUT_DIR, step)
+        self._write_tb(results, cfg, step)
         return results
+
+    def _write_tb(self, results, cfg, step: int) -> None:
+        if self.is_main:
+            write_eval_results_tb(results, cfg.OUTPUT_DIR, step)
 
 
 class _weights:
@@ -844,12 +885,13 @@ class TFAFewShotDetectionRunner(MetaFCOSRunner):
         return True
 
 
-def create_runner(name: str, device: Union[str, torch.device] = "cuda"
-                  ) -> MetaFCOSRunner:
+def create_runner(name: str, device: Union[str, torch.device] = "cuda",
+                  group: Optional[DataGroup] = None) -> MetaFCOSRunner:
     """A runner by name (reference-style dotted names accepted):
     ``MetaFCOSRunner``, ``MetaFCOSROIEncoderRunner``,
     ``TFAFewShotDetectionRunner``, ``MetaFasterRCNNRunner``,
-    ``TFAFasterRCNNRunner``."""
+    ``TFAFasterRCNNRunner``; ``group``: this process's data-parallel
+    group."""
     from .meta_faster_rcnn_runner import (MetaFasterRCNNRunner,
                                           TFAFasterRCNNRunner)
 
@@ -858,4 +900,4 @@ def create_runner(name: str, device: Union[str, torch.device] = "cuda"
              "TFAFewShotDetectionRunner": TFAFewShotDetectionRunner,
              "MetaFasterRCNNRunner": MetaFasterRCNNRunner,
              "TFAFasterRCNNRunner": TFAFasterRCNNRunner}
-    return table[name.split(".")[-1]](device=device)
+    return table[name.split(".")[-1]](device=device, group=group)

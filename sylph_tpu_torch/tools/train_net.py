@@ -1,18 +1,31 @@
-"""CLI: train, then meta-test, a model with the port on one card (port of
-the JAX package's tools/train_net.py).
+"""CLI: train, then meta-test, a model with the port on one card or on N
+(port of the JAX package's tools/train_net.py).
 
     python3 -m sylph_tpu_torch.tools.train_net [--runner MetaFCOSRunner] \
         --config-file sylph://COCO-Detection/Meta-FCOS/Meta-FCOS-finetune.yaml \
         [--eval-only] [--output-dir DIR] [--datasets-root datasets/coco] \
         [--lvis-root datasets/lvis] [--device cuda] [KEY VALUE ...]
 
+On N cards, one process per card, through torchrun (it ships with torch):
+
+    python3 -m torch.distributed.run --standalone --nproc_per_node N \
+        -m sylph_tpu_torch.tools.train_net --distributed [--dist-url URL] ...
+
+``--distributed`` builds the data-parallel group from torchrun's
+environment (``parallel.mesh.create_mesh``: NCCL on the cards, gloo with
+``--device cpu``); ``--dist-url`` replaces torchrun's rendezvous with
+another, e.g. a ``file://`` store, where RANK and WORLD_SIZE are set by
+hand.
+
 ``--runner`` takes MetaFCOSRunner, MetaFasterRCNNRunner (with the
 LVISv1-Detection/Meta-RCNN configs) or TFAFasterRCNNRunner.
 ``auto_scale_world_size`` emulates the config's REFERENCE_WORLD_SIZE ranks
-on the one card with TPU.GRAD_ACCUM micro-groups (batch, LR and schedule
-unchanged) where the batch divides, as the JAX package does on its device
-count. ``config.yaml``, ``config_diff.yaml`` (against the runner's defaults)
-and ``env.txt`` go into OUTPUT_DIR first. SYLPH_TEST_MODE=1 shrinks the run
+on the group's ranks with TPU.GRAD_ACCUM micro-groups on each (batch, LR
+and schedule unchanged) where the batch divides, as the JAX package does on
+its device count. ``config.yaml``, ``config_diff.yaml`` (against the
+runner's defaults) and ``env.txt`` go into OUTPUT_DIR first; rank 0 writes
+them, the synthetic trees, checkpoints, metrics and
+``eval_results.json``. SYLPH_TEST_MODE=1 shrinks the run
 (``apply_test_mode``) and writes a synthetic COCO tree at
 ``--datasets-root``, and for a config on LVIS datasets a synthetic LVIS tree
 at ``--lvis-root``, where none is there. After training, ``do_test`` runs
@@ -26,6 +39,7 @@ import json
 import os
 
 from ..data.catalog import register_all_coco, register_all_lvis
+from ..parallel.mesh import DataGroup, create_mesh
 from ..runner import create_runner
 from ..utils.setup import setup_after_launch
 
@@ -132,10 +146,26 @@ def main(argv=None):
     p.add_argument("--datasets-root", default="datasets/coco")
     p.add_argument("--lvis-root", default="datasets/lvis")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--distributed", action="store_true",
+                   help="one rank of a data-parallel group: read torchrun's "
+                        "environment (RANK, WORLD_SIZE, LOCAL_RANK, "
+                        "MASTER_ADDR, MASTER_PORT)")
+    p.add_argument("--dist-url", default=None,
+                   help="with --distributed: the rendezvous (default "
+                        "env://), e.g. file:///tmp/rendezvous")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     args = p.parse_args(argv)
 
-    runner = create_runner(args.runner, device=args.device)
+    group = (create_mesh(args.device, init_method=args.dist_url)
+             if args.distributed else DataGroup.single(args.device))
+    try:
+        return _run(args, group)
+    finally:
+        group.close()
+
+
+def _run(args, group: DataGroup):
+    runner = create_runner(args.runner, group=group)
     cfg = runner.get_default_cfg()
     cfg.merge_from_file(args.config_file)
     opts = args.opts
@@ -150,17 +180,18 @@ def main(argv=None):
         apply_test_mode(cfg)
         if not args.output_dir:
             cfg.OUTPUT_DIR = os.path.join(cfg.OUTPUT_DIR, "testmode_smoke")
-    auto_scale_world_size(cfg, world=1)
+    auto_scale_world_size(cfg, world=group.world)
     cfg.freeze()
-    setup_after_launch(cfg, cfg.OUTPUT_DIR,
-                       default_cfg=runner.get_default_cfg())
-
     uses_lvis = any(n.startswith("lvis") for n in
                     list(cfg.DATASETS.TRAIN) + list(cfg.DATASETS.TEST))
-    if test_mode:
-        _ensure_test_mode_dataset(args.datasets_root)
-        if uses_lvis:
-            _ensure_test_mode_lvis(args.lvis_root, args.datasets_root)
+    if group.is_main:
+        setup_after_launch(cfg, cfg.OUTPUT_DIR,
+                           default_cfg=runner.get_default_cfg())
+        if test_mode:
+            _ensure_test_mode_dataset(args.datasets_root)
+            if uses_lvis:
+                _ensure_test_mode_lvis(args.lvis_root, args.datasets_root)
+    group.barrier()  # the trees are written before any rank reads them
     register_all_coco(args.datasets_root)
     if uses_lvis:
         register_all_lvis(args.lvis_root, args.datasets_root)
@@ -173,8 +204,10 @@ def main(argv=None):
         # the EMA weights when MODEL_EMA is on (reference :692-699)
         model.load_state_dict(runner.eval_params(cfg, state), strict=False)
     results = runner.do_test(cfg, model, step=step)
-    with open(os.path.join(cfg.OUTPUT_DIR, "eval_results.json"), "w") as f:
-        json.dump(results, f, indent=2, default=float)
+    if group.is_main:
+        with open(os.path.join(cfg.OUTPUT_DIR, "eval_results.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2, default=float)
     print(json.dumps({k: v.get("bbox", v) for k, v in results.items()},
                      indent=2, default=float))
     return results

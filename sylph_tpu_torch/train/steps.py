@@ -1,4 +1,5 @@
-"""Train steps (port of sylph_tpu/train/steps.py) on one card.
+"""Train steps (port of sylph_tpu/train/steps.py) on one card or on each
+rank of a data-parallel group.
 
 Each step takes a batch whose tensors already sit on the model's device
 (the train loaders copy them on their worker thread), applies the device
@@ -19,9 +20,18 @@ run's ranks on one card):
 With m = 1 this is the plain step. Targets are assigned per group, which
 keeps the assigner's (B, K, M, 4) intermediate at the group's size.
 
+``group=`` (a ``parallel.mesh.DataGroup`` of W ranks) makes each rank's
+batch its slice of the global one, and its m groups the global groups
+``rank * m`` to ``rank * m + m - 1``: the normalizers are means over all
+W * m groups, and the averaged gradients and reported losses are averaged
+over the ranks in one all-reduce before the update, so the gradient clip
+sees the global gradient (JAX's ``pmean`` before the optax chain). W ranks
+of m groups compute what one process of W * m groups computes.
+
 The episodic step hands each group's forward a CPU ``torch.Generator``
-seeded from (seed, iteration, group) for the ROIEncoder's dropout, so a
-resumed run draws what an uninterrupted one does.
+seeded from (seed, iteration, global group) for the ROIEncoder's dropout,
+so a resumed run draws what an uninterrupted one does, and W ranks draw
+what one process draws.
 
 ``TPU.STEPS_PER_CALL`` (K optimizer steps in one TPU dispatch) changes no
 numbers and exists for the TPU's dispatch cost; the port runs one step per
@@ -34,8 +44,10 @@ rank's own normalizers (B x 256 anchors, the sampled ROIs of each image),
 so the mean over the groups is JAX's pmean. They apply no RandAugment:
 the JAX package's two-stage steps never read the drawn ops. Each group
 samples anchors and ROIs by the draw source ``draws(iteration, group,
-groups)`` gives it, by default ``SampleDraws.for_step(seed, iteration,
-group)`` on the model's device.
+groups)`` gives it (the global group index and count), by default
+``SampleDraws.for_step(seed, iteration, group)`` on the model's device.
+Only their gradients and losses are averaged across ranks; each group
+keeps its own normalizers, as in JAX's ``finalize_step``.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from ..ops.assigner import FCOSTargets, assign_fcos_targets
 from ..ops.fcos_losses import (FCOSLossCfg, fcos_episodic_losses,
                                fcos_pretrain_losses, loss_normalizers)
 from ..ops.image_aug import rand_augment_device
+from ..parallel.mesh import DataGroup, all_reduce_mean_
 from ..structures import GTBoxes
 from .train_state import TrainState
 
@@ -95,11 +108,17 @@ def _cat_targets(ts) -> FCOSTargets:
     return FCOSTargets(*(torch.cat(x, 0) for x in zip(*ts)))
 
 
+def _ranks(group: Optional[DataGroup]) -> Tuple[int, int]:
+    return (group.rank, group.world) if group is not None else (0, 1)
+
+
 def _run_micro_groups(state: TrainState, m: int,
-                      loss_at: Callable[[int], Dict[str, torch.Tensor]]
+                      loss_at: Callable[[int], Dict[str, torch.Tensor]],
+                      group: Optional[DataGroup] = None
                       ) -> Dict[str, torch.Tensor]:
     """Backpropagate each group's summed losses, average the gradients and
-    losses over the groups, apply one update; returns the losses."""
+    losses over the groups and then over the ranks of ``group``, apply one
+    update; returns the losses."""
     state.tx.zero_grad()
     acc: Optional[Dict[str, torch.Tensor]] = None
     for gi in range(m):
@@ -115,18 +134,29 @@ def _run_micro_groups(state: TrainState, m: int,
         if grads:
             torch._foreach_mul_(grads, scale)
         acc = {k: v * scale for k, v in acc.items()}
+    if group is not None and group.world > 1:
+        # a gradient-free parameter counts as a zero gradient, as in the
+        # update itself; every rank then reduces the same tensors
+        for p in state.tx.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        keys = sorted(acc)
+        losses = torch.stack([acc[k].float() for k in keys])
+        all_reduce_mean_([p.grad for p in state.tx.params] + [losses], group)
+        acc = dict(zip(keys, losses.unbind()))
     state.apply_updates()
     return acc
 
 
 def make_pretrain_train_step(model, grid, loss_cfg: FCOSLossCfg,
                              center_sample: bool = True, radius: float = 1.5,
-                             steps_per_call: int = 1, grad_accum: int = 1
+                             steps_per_call: int = 1, grad_accum: int = 1,
+                             group: Optional[DataGroup] = None
                              ) -> Callable[[TrainState, Batch],
                                            Tuple[TrainState, Dict]]:
-    """Batch: images (B, H, W, 3) uint8 BGR, gt_boxes (B, M, 4), gt_labels
-    (B, M), gt_valid (B, M), and optionally aug_ops, aug_params,
-    image_sizes; B divisible by ``grad_accum``."""
+    """Batch (this rank's slice): images (B, H, W, 3) uint8 BGR, gt_boxes
+    (B, M, 4), gt_labels (B, M), gt_valid (B, M), and optionally aug_ops,
+    aug_params, image_sizes; B divisible by ``grad_accum``."""
     _check_steps_per_call(steps_per_call)
     m = max(1, grad_accum)
     g = _Grid(grid, next(model.parameters()).device)
@@ -140,7 +170,7 @@ def make_pretrain_train_step(model, grid, loss_cfg: FCOSLossCfg,
         targets = [_assign(g, batch["gt_boxes"][s], batch["gt_labels"][s],
                            batch["gt_valid"][s], center_sample, radius)
                    for s in sl]
-        npa, ld = loss_normalizers(_cat_targets(targets), m)
+        npa, ld = loss_normalizers(_cat_targets(targets), m, group)
 
         def loss_at(gi):
             out = model.forward_base(images[sl[gi]])
@@ -148,7 +178,7 @@ def make_pretrain_train_step(model, grid, loss_cfg: FCOSLossCfg,
                                         out.iou, targets[gi], loss_cfg,
                                         num_pos_avg=npa, loss_denorm=ld)
 
-        return state, _run_micro_groups(state, m, loss_at)
+        return state, _run_micro_groups(state, m, loss_at, group)
 
     return step
 
@@ -157,10 +187,10 @@ def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
                              num_shots: int, center_sample: bool = True,
                              radius: float = 1.5, pretrained_kernel=None,
                              steps_per_call: int = 1, grad_accum: int = 1,
-                             seed: int = 0
+                             seed: int = 0, group: Optional[DataGroup] = None
                              ) -> Callable[[TrainState, Batch],
                                            Tuple[TrainState, Dict]]:
-    """Batch (E episodes): support_images (E*shot, Hs, Ws, 3),
+    """Batch (this rank's E episodes): support_images (E*shot, Hs, Ws, 3),
     support_boxes (E*shot, 4), support_box_valid (E*shot,), query_images
     (E*Q, H, W, 3), query_gt_{boxes,labels,valid} (E*Q, M, ...),
     episode_class_ids (E,), and optionally query_aug_ops,
@@ -168,6 +198,7 @@ def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
     _check_steps_per_call(steps_per_call)
     m = max(1, grad_accum)
     g = _Grid(grid, next(model.parameters()).device)
+    rank, _ = _ranks(group)
 
     def step(state: TrainState, batch: Batch):
         it = state.step
@@ -186,7 +217,7 @@ def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
         ss = [slice(i * smb, (i + 1) * smb) for i in range(m)]
         targets = [_assign(g, batch["query_gt_boxes"][s], labels[s],
                            valid[s], center_sample, radius) for s in qs]
-        npa, ld = loss_normalizers(_cat_targets(targets), m)
+        npa, ld = loss_normalizers(_cat_targets(targets), m, group)
 
         def loss_at(gi):
             out, codes = model.forward_episodic_train(
@@ -195,7 +226,7 @@ def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
                 batch["support_box_valid"][ss[gi]],
                 batch["query_images"][qs[gi]], num_shots,
                 generator=torch.Generator().manual_seed(
-                    SampleDraws.step_seed(seed, it, gi)))
+                    SampleDraws.step_seed(seed, it, rank * m + gi)))
             losses = fcos_episodic_losses(
                 out.logits, out.reg, out.ctrness, targets[gi], ids_m[gi],
                 loss_cfg, class_code=codes,
@@ -205,21 +236,23 @@ def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
                 losses["loss_snnl"] = codes["snnl"]
             return losses
 
-        return state, _run_micro_groups(state, m, loss_at)
+        return state, _run_micro_groups(state, m, loss_at, group)
 
     return step
 
 
 class _RCNNStepSetup:
     """What both two-stage steps share: the anchors on the model's device,
-    the canvas as every image's size, the micro-group count and the draw
-    sources."""
+    the canvas as every image's size, the micro-group count, the rank and
+    the draw sources by global group."""
 
     def __init__(self, model, grid, canvas: Sequence[int], seed: int,
                  draws: Optional[DrawsFactory], steps_per_call: int,
-                 grad_accum: int):
+                 grad_accum: int, group: Optional[DataGroup]):
         _check_steps_per_call(steps_per_call)
         self.m = max(1, grad_accum)
+        self.group = group
+        self.rank, self.world = _ranks(group)
         self.device = next(model.parameters()).device
         self.anchors = torch.as_tensor(grid.anchors, device=self.device)
         self.splits = tuple(grid.level_splits)
@@ -231,6 +264,11 @@ class _RCNNStepSetup:
     def sizes(self, b: int) -> torch.Tensor:
         return self.canvas.expand(b, 2)
 
+    def draws_of(self, it: int, gi: int):
+        """The draw source of this rank's group ``gi``: global group
+        ``rank * m + gi`` of ``world * m``."""
+        return self.draws(it, self.rank * self.m + gi, self.world * self.m)
+
 
 def make_rcnn_episodic_train_step(model, grid, num_shots: int,
                                   canvas: Sequence[int], rpn_pre_nms: int,
@@ -238,7 +276,8 @@ def make_rcnn_episodic_train_step(model, grid, num_shots: int,
                                   seed: int = 0,
                                   draws: Optional[DrawsFactory] = None,
                                   steps_per_call: int = 1,
-                                  grad_accum: int = 1
+                                  grad_accum: int = 1,
+                                  group: Optional[DataGroup] = None
                                   ) -> Callable[[TrainState, Batch],
                                                 Tuple[TrainState, Dict]]:
     """Episodic two-stage step. ``grid``: the ``AnchorGrid`` of ``canvas``
@@ -246,7 +285,7 @@ def make_rcnn_episodic_train_step(model, grid, num_shots: int,
     ``make_episodic_train_step``; E divisible by ``grad_accum``. A group's
     queries keep only the GT of that group's episode classes."""
     s = _RCNNStepSetup(model, grid, canvas, seed, draws, steps_per_call,
-                       grad_accum)
+                       grad_accum, group)
     m = s.m
 
     def step(state: TrainState, batch: Batch):
@@ -267,11 +306,11 @@ def make_rcnn_episodic_train_step(model, grid, num_shots: int,
             return model.forward_episodic_train(
                 batch["support_images"][ss], batch["support_boxes"][ss],
                 batch["support_box_valid"][ss], batch["query_images"][qs],
-                gt, ids_m[gi], s.draws(it, gi, m), s.anchors, s.splits,
+                gt, ids_m[gi], s.draws_of(it, gi), s.anchors, s.splits,
                 s.sizes(qmb), num_shots, rpn_post_nms=rpn_post_nms,
                 roi_batch=roi_batch, rpn_pre_nms=rpn_pre_nms)
 
-        return state, _run_micro_groups(state, m, loss_at)
+        return state, _run_micro_groups(state, m, loss_at, s.group)
 
     return step
 
@@ -281,14 +320,15 @@ def make_rcnn_pretrain_train_step(model, grid, canvas: Sequence[int],
                                   roi_batch: int, seed: int = 0,
                                   draws: Optional[DrawsFactory] = None,
                                   steps_per_call: int = 1,
-                                  grad_accum: int = 1
+                                  grad_accum: int = 1,
+                                  group: Optional[DataGroup] = None
                                   ) -> Callable[[TrainState, Batch],
                                                 Tuple[TrainState, Dict]]:
     """Plain two-stage step (pretraining, TFA-RCNN). Batch: images (B, H, W,
     3) uint8 BGR, gt_boxes (B, M, 4), gt_labels (B, M), gt_valid (B, M); B
     divisible by ``grad_accum``."""
     s = _RCNNStepSetup(model, grid, canvas, seed, draws, steps_per_call,
-                       grad_accum)
+                       grad_accum, group)
     m = s.m
 
     def step(state: TrainState, batch: Batch):
@@ -301,10 +341,10 @@ def make_rcnn_pretrain_train_step(model, grid, canvas: Sequence[int],
             gt = GTBoxes(batch["gt_boxes"][sl], batch["gt_labels"][sl],
                          batch["gt_valid"][sl])
             return model.forward_pretrain_train(
-                images[sl], gt, s.draws(it, gi, m), s.anchors, s.splits,
+                images[sl], gt, s.draws_of(it, gi), s.anchors, s.splits,
                 s.sizes(mb), rpn_post_nms=rpn_post_nms, roi_batch=roi_batch,
                 rpn_pre_nms=rpn_pre_nms)
 
-        return state, _run_micro_groups(state, m, loss_at)
+        return state, _run_micro_groups(state, m, loss_at, s.group)
 
     return step

@@ -55,5 +55,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "sylph_tpu_torch.ops.deform_conv",
                 "sylph_tpu_torch.utils.convert_d2",
                 "sylph_tpu_torch.evaluation.visualization",
-                "sylph_tpu_torch.tools.demo_inference"}
+                "sylph_tpu_torch.tools.demo_inference",
+                "sylph_tpu_torch.parallel", "sylph_tpu_torch.parallel.mesh",
+                "sylph_tpu_torch.tools.bench_registration"}
     assert expected <= set(report["imported"])

@@ -197,11 +197,14 @@ def test_entry_points_refuse_cuda_without_a_card(env, monkeypatch):
             call()
 
 
-def test_unported_parts_raise():
-    """The sharded registration (multi-GPU, not ported yet) raises; every
-    runner builds, the one-stage variants included."""
-    with pytest.raises(NotImplementedError):
-        meta_eval.generate_class_codes_sharded()
+def test_unported_parts_raise(tmp_path):
+    """An orbax checkpoint directory (it needs JAX to read) raises; every
+    runner builds, the one-stage variants included. The sharded
+    registration is ported: tests/test_torch_dp_registration.py."""
+    from sylph_tpu_torch.train.checkpoint import load_params_any
+    (tmp_path / "orbax" / "params").mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="orbax"):
+        load_params_any(str(tmp_path / "orbax"))
     assert isinstance(create_runner("sylph.runner.MetaFCOSRunner",
                                     device="cpu"), MetaFCOSRunner)
     for name in ("MetaFasterRCNNRunner", "TFAFasterRCNNRunner",

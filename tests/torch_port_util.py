@@ -658,3 +658,71 @@ def run_rcnn_steps(pair_, episodic, batch, n=2, grad_accum=1, freeze_kw=None,
     js = jst.unpack() if hasattr(jst, "unpack") else jst
     return (losses, state_dict_from_jax(jax.tree.map(np.asarray, js.params)),
             model, tst)
+
+
+# ------------------------------------------------------ data-parallel ranks
+# Each rank is a fresh interpreter that imports the test file by its path,
+# joins a gloo group through a file:// store under the test's tmp_path (no
+# port to race for between xdist workers), calls the file's ``fn(group,
+# out_dir, **kwargs)`` and saves what it returns. Test files that hold
+# rank functions import nothing of JAX at module level.
+RANK_MAIN = r"""
+import importlib.util, sys
+import torch
+torch.set_num_threads(1)
+path, fn, rank, world, url, out = sys.argv[1:7]
+spec = importlib.util.spec_from_file_location("rank_module", path)
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+from sylph_tpu_torch.parallel import create_mesh
+group = create_mesh("cpu", init_method=url, rank=int(rank),
+                    world_size=int(world))
+kwargs = torch.load(f"{out}/kwargs.pt", weights_only=False)
+result = getattr(mod, fn)(group, out, **kwargs)
+torch.save(result, f"{out}/rank{rank}.pt")
+group.close()
+"""
+
+
+def spawn_ranks(script, fn, out_dir, world=2, timeout=300, **kwargs):
+    """Run ``fn`` of the test file ``script`` in ``world`` gloo processes on
+    the CPU, one thread each; returns each rank's result in rank order. A
+    rank that fails, or a run that outlives ``timeout``, fails the test and
+    ends every rank."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    out_dir = str(out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(kwargs, os.path.join(out_dir, "kwargs.pt"))
+    url = "file://" + os.path.join(out_dir, "rendezvous")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_MAIN, os.path.abspath(script),
+                 fn, str(r), str(world), url, out_dir], env=env, cwd=repo,
+                stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        with open(logs[r]) as log:
+            assert p.returncode == 0, f"rank {r}:\n{log.read()[-6000:]}"
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
