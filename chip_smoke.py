@@ -184,6 +184,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      card, bf16, 1203 classes at 10 shots 8 a call and 64 one a call; one
      ``registration`` line.
      A child rank that fails or hangs past its timeout fails the script.
+ 24. the quality loop: ``tools/quality_loop.py --family fcos_heldout
+     --hard`` at the recipe's width (R-18, FPN 256, 1-conv towers, 128x128
+     canvas, 64x64 supports, float32; artifacts/quality_loop_fcos_heldout)
+     cut to 100 + 100 iterations and REPEAT_TEST 1, on the hard 18-class
+     synthetic set it writes: a base pretrain, its ``base_pretrain.npz``,
+     the frozen-backbone episodic finetune on the base classes, the
+     meta-test on the novel, base and all splits. Both stages'
+     ``config_diff.yaml`` equal the recorded recipe's but for the cut and
+     the paths, the loss falls over each stage, bAP is above 0, and every
+     NMS launch (each evaluation's) equals the twin; one ``quality`` line
+     with the AP, each stage's times and idle share, and the kernel's time
+     at each shape the loop gave it.
 
 The last lines are the card's ``name, power.limit``, one JSON object
 listing every kernel with its launches (in all, by path and by ranking
@@ -191,7 +203,8 @@ route), error and times (``earlier_ms``: the first design's time on the
 serving path's NMS input; ``meta_test_ms``: the kernel on a B=8 meta-test
 batch; ``shapes``: phase 10's cases and the RPN-train inputs of phases
 14-15; ``launches_by_path`` counts the ranks' launches of phases 21-22 as
-``dp_meta_test`` and ``dp_rcnn_train``), and ``{"ok": true, "device":
+``dp_meta_test`` and ``dp_rcnn_train``, and phase 24's as
+``quality_fcos_heldout``), and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -242,7 +255,9 @@ from sylph_tpu_torch.runner import (MetaFCOSRunner, _freeze_cfg, _mapper,
                                     build_model_from_cfg, create_runner)
 from sylph_tpu_torch.data.loader import batch_to_device
 from sylph_tpu_torch.data.transforms import draw_rand_augment
-from sylph_tpu_torch.tools import bench_registration
+from sylph_tpu_torch.tools import bench_registration, quality_loop
+from sylph_tpu_torch.tools.quality_loop import card_line
+from sylph_tpu_torch.tools.nms_audit import nms_bound_ms, time_ms
 from sylph_tpu_torch.tools.profile_meta_test import DATA as META_TEST_DATA
 from sylph_tpu_torch.tools.profile_meta_test import (ONE_STAGE, RCNN_DATA,
                                                      meta_test_cfg,
@@ -253,25 +268,12 @@ from sylph_tpu_torch.train.checkpoint import CheckpointManager
 from sylph_tpu_torch.utils.events import peak_memory_gb
 
 CONFIG = "sylph://COCO-Detection/Meta-FCOS/Meta-FCOS-finetune.yaml"
-# H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-# One IoU test: 2 max, 2 min, 3 sub, 2 clamp, 1 mul, 1 add, 1 max, 1 div,
-# 1 compare.
-NMS_OPS_PER_IOU_TEST = 14
 ADVERSARIAL = ("identical_boxes", "no_overlap", "dense_clusters",
                "chunk_boundary_ties", "signed_zeros")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip()
 
 
 def reset_counts() -> None:
@@ -290,38 +292,6 @@ def read_counts(what: str):
         raise AssertionError(f"{what}: {launches} NMS launches, but by route "
                              f"{routes}")
     return launches, routes
-
-
-def time_ms(fn, reps: int, warmup: int = 2, rounds: int = 5,
-            graph: bool = False) -> float:
-    """Median over ``rounds`` of the mean time of ``reps`` back-to-back
-    calls of ``fn`` between two CUDA events. Without ``graph`` the calls
-    are issued from the host, so a call that is shorter on the card than
-    on the host measures the host. With ``graph`` the ``reps`` calls are
-    captured once in a CUDA graph that is replayed between the events:
-    the kernels' time on the card, back to back."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-
-    def run():
-        for _ in range(reps):
-            fn()
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, capture_error_mode="relaxed"):
-            run()
-        run = g.replay
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
 
 
 # ------------------------------------------------------------------- NMS
@@ -377,38 +347,6 @@ def nms_planes(boxes, scores, classes, valid):
     planes = shifted.permute(2, 0, 1).contiguous()
     return (shifted, planes[0], planes[1], planes[2], planes[3],
             scores.contiguous(), valid.to(torch.int32).contiguous())
-
-
-def walk_tests(scores, valid, idx, ok) -> int:
-    """IoU tests the walk in (score desc, index asc) order needs: each
-    candidate it reaches against each kept one ranked before it."""
-    tests = 0
-    for r in range(scores.shape[0]):
-        s = torch.where(valid[r], scores[r] + 0.0, -1e10)
-        n = int((s > -5e9).sum())
-        order = torch.sort(-s, stable=True).indices[:n]
-        rank = torch.full_like(s, -1, dtype=torch.long)
-        rank[order] = torch.arange(n, device=order.device)
-        kept = rank[idx[r][ok[r]].long()]
-        if kept.numel() == 0:  # nothing alive in this image
-            continue
-        reached = int(kept.max()) + 1 if int(ok[r].sum()) == idx.shape[1] \
-            else n
-        tests += int((reached - 1 - kept).sum())
-    return tests
-
-
-def nms_bound_ms(scores, valid, idx, ok):
-    """Least time for the work this input needs: each input read once,
-    each output written once; the IoU tests of the walk, and
-    K log2 K compares to order the candidates."""
-    (b, k), m = scores.shape, idx.shape[1]
-    nbytes = b * k * (4 * 4 + 4 + 4) + b * m * (4 + 4)
-    ops = (walk_tests(scores, valid, idx, ok) * NMS_OPS_PER_IOU_TEST
-           + b * k * int(np.ceil(np.log2(max(k, 2)))))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def check_nms_case(inputs, m: int, what: str):
@@ -2801,6 +2739,100 @@ def phase_registration(card: str):
     return line
 
 
+# ------------------------------------------------------- quality loop
+QUALITY_ITERS = 100   # a stage; the recipe's is 600
+QUALITY_RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "artifacts", "quality_loop_fcos_heldout")
+# what the cut changes in config_diff.yaml besides the paths: MAX_ITER and
+# the schedule scaled with it by _common_shrink, and REPEAT_TEST 5 -> 1
+QUALITY_CUT = {("SOLVER", "MAX_ITER"): QUALITY_ITERS,
+               ("SOLVER", "STEPS"): [int(QUALITY_ITERS * 0.8)],
+               ("SOLVER", "WARMUP_ITERS"): min(50, QUALITY_ITERS // 4),
+               ("TEST", "REPEAT_TEST"): None}
+
+
+def _recipe_diff(path: str, cut: bool):
+    """A config_diff.yaml without its paths; with ``cut``, the cut's keys
+    checked against QUALITY_CUT and dropped."""
+    import yaml
+
+    with open(path) as f:
+        diff = yaml.safe_load(f)
+    diff.pop("OUTPUT_DIR", None)
+    diff.get("MODEL", {}).pop("WEIGHTS", None)
+    for (section, key), value in QUALITY_CUT.items():
+        got = diff.get(section, {}).pop(key, None)
+        if cut and got != value:
+            raise AssertionError(f"{path}: {section}.{key} is {got}, the cut "
+                                 f"gives {value}")
+    return {k: v for k, v in diff.items() if v != {}}
+
+
+def phase_quality(work: str, card: str):
+    """Phase 24: ``tools/quality_loop.py`` fcos_heldout at the recipe's
+    width (R-18, FPN 256, 1-conv towers, 128x128 canvas, 64x64 supports,
+    float32) on the hard 18-class set, cut to QUALITY_ITERS + QUALITY_ITERS
+    iterations and REPEAT_TEST 1. Both stages' config_diff.yaml equal the
+    recorded recipe's but for the cut and the paths; the loss falls over
+    each stage; bAP is above 0; every NMS launch equals the twin (the
+    driver's audit). -> (counts, the ``quality`` line)."""
+    out = os.path.join(work, "quality_fcos_heldout")
+    args = quality_loop.parse_args(
+        ["--family", "fcos_heldout", "--hard", "--iters", str(QUALITY_ITERS),
+         "--repeat-test", "1", "--data-root",
+         os.path.join(work, "quality_hard"), "--output-dir", out])
+    # ---- the main path: counts are read around this block alone
+    reset_counts()
+    t0 = time.perf_counter()
+    results = quality_loop.train_and_score(args)
+    wall = time.perf_counter() - t0
+    counts = read_counts("quality_fcos_heldout")
+    # ---- end of the main path
+    quality_loop.report(args, results)   # times the kernel per shape
+    with open(os.path.join(out, "run_stats.json")) as f:
+        stats = json.load(f)
+    audited = sum(stats["nms"]["launches_by_label"].values())
+    if audited != counts[0] or counts[0] < 1:
+        raise AssertionError(f"quality: {counts[0]} NMS launches, the audit "
+                             f"held {audited} against the twin")
+    for stage, recorded in (("pretrain/config_diff.yaml",
+                             "pretrain_config_diff.yaml"),
+                            ("config_diff.yaml", "config_diff.yaml")):
+        got = _recipe_diff(os.path.join(out, stage), cut=True)
+        want = _recipe_diff(os.path.join(QUALITY_RECIPE, recorded),
+                            cut=False)
+        if got != want:
+            raise AssertionError(f"quality: {stage} != the recorded recipe's "
+                                 f"{recorded}: {got} vs {want}")
+    for s in stats["stages"]:
+        if not s["loss_last"] < s["loss_first"]:
+            raise AssertionError(f"quality: the {s['stage']} loss did not "
+                                 f"fall: {s['loss_first']:.4f} -> "
+                                 f"{s['loss_last']:.4f}")
+    allb = results["coco_meta_val_all"]["bbox"]
+    if not allb["bAP"] > 0:
+        raise AssertionError(f"quality: bAP {allb['bAP']}")
+    line = {"quality": "fcos_heldout", "iters": QUALITY_ITERS,
+            "AP": allb["AP"], "nAP": allb["nAP"], "bAP": allb["bAP"],
+            "base_pretrain_AP": stats["stages"][0]["ap"][
+                "coco_pretrain_val_base"],
+            "wall_s": wall, "nms_launches": counts[0],
+            "stages": [{k: s[k] for k in (
+                "stage", "train_s", "train_parts", "profiler_s", "test_s",
+                "median_step_ms", "median_data_wait_ms", "loss_first",
+                "loss_last", "profile")} for s in stats["stages"]],
+            "nms_shapes": [{k: v for k, v in row.items()
+                            if k != "launches_by_label"}
+                           for row in stats["nms"]["shapes"]],
+            "card": card}
+    log(f"[quality] fcos_heldout {QUALITY_ITERS} + {QUALITY_ITERS} its in "
+        f"{wall:.1f} s: AP {allb['AP']:.2f}, nAP {allb['nAP']:.2f}, bAP "
+        f"{allb['bAP']:.2f}; every one of the {counts[0]} NMS launches "
+        f"equal to the twin; config_diff.yaml equal to {QUALITY_RECIPE}'s "
+        f"but for the cut")
+    return {"quality_fcos_heldout": counts}, line
+
+
 def main() -> int:
     os.environ.pop("SYLPH_TEST_MODE", None)  # it would cut the query set
     if not torch.cuda.is_available():
@@ -2850,6 +2882,9 @@ def main() -> int:
         dp_counts, dp_line, dp_train_lines = phase_dp(work, card)
         registration_line = phase_registration(card)
         log(f"[time] phases 21-23: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        quality_counts, quality_line = phase_quality(work, card)
+        log(f"[time] phase 24: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[time] every phase, the builds included: "
@@ -2860,7 +2895,8 @@ def main() -> int:
     counts = {"serve": serve_counts, "meta_test": meta_counts, **rcnn_counts,
               "rcnn_plain": plain_counts, "rcnn_train_episodic": ep_counts,
               "rcnn_train_pretrain": rpre_counts, "rcnn_train_tfa": tfa_counts,
-              **roi_counts, **tfa1_counts, **dcn_counts, **dp_counts}
+              **roi_counts, **tfa1_counts, **dcn_counts, **dp_counts,
+              **quality_counts}
     by_path = {path: n for path, (n, _) in counts.items()}
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the NMS kernel: "
@@ -2890,7 +2926,7 @@ def main() -> int:
     print(json.dumps(pretrain_line), flush=True)
     for line in (ep_line, rpre_line, tfa_line, roi_serve, roi_train,
                  *tfa1_lines, dcn_serve, dcn_train, *dp_train_lines, dp_line,
-                 registration_line):
+                 registration_line, quality_line):
         print(json.dumps(line), flush=True)
     print(json.dumps(rcnn_line), flush=True)
     print(card, flush=True)

@@ -23,6 +23,12 @@ numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 
 ``load_jax_params`` loads the result with ``strict=True``: a key left
 unconsumed on either side raises.
+
+``jax_params_from_state_dict`` is the inverse, leaf for leaf: the port's
+``state_dict`` (parameters and FrozenBN buffers) back to the flax tree, and
+``save_flat_npz`` writes such a tree as a flat ``.npz`` keyed ``a/b/c`` (the
+layout the JAX package's quality loops write for a stage's weights and its
+``MODEL.WEIGHTS`` reads).
 """
 
 from __future__ import annotations
@@ -93,6 +99,76 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, [])
     return out
+
+
+def _flax_leaf(module_path, leaf: str, arr: np.ndarray, siblings: Mapping):
+    """The inverse of ``_leaf``: one port leaf -> (flax name, array)."""
+    where = ".".join([*module_path, leaf])
+    module = module_path[-1] if module_path else ""
+    if leaf == "weight":
+        if arr.ndim == 4:                             # (out, in, kh, kw)
+            return "kernel", np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        if arr.ndim == 2 and module in _HEADS_IN:     # (heads * hd, d)
+            heads, hd = siblings[(*module_path, "bias")].shape
+            return "kernel", np.ascontiguousarray(
+                arr.T.reshape(arr.shape[1], heads, hd))
+        attention_out = (module == "out" and np.ndim(siblings.get(
+            (*module_path[:-1], "query", "bias"))) == 2)
+        if arr.ndim == 2 and attention_out:           # (d, heads * hd)
+            heads, hd = siblings[(*module_path[:-1], "query", "bias")].shape
+            return "kernel", np.ascontiguousarray(
+                arr.T.reshape(heads, hd, arr.shape[0]))
+        if arr.ndim == 2:
+            return "kernel", np.ascontiguousarray(arr.T)
+        if arr.ndim == 1:                             # GroupNorm, LayerNorm
+            return "scale", arr
+        raise ValueError(f"{where}: no flax counterpart for a weight of "
+                         f"shape {arr.shape}")
+    if _PLAIN.get(leaf) == arr.ndim or leaf in ("bias", "scale"):
+        return leaf, arr
+    if arr.ndim == 0:
+        return leaf, arr
+    raise ValueError(f"{where}: no flax counterpart for a leaf of shape "
+                     f"{arr.shape}")
+
+
+def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor]
+                               ) -> Dict:
+    """The port's ``state_dict`` -> a flax param tree (nested dicts of
+    float32 numpy arrays): ``state_dict_from_jax``'s inverse."""
+    flat = {tuple(k.split(".")): v.detach().cpu().float().numpy()
+            for k, v in state_dict.items()}
+    out: Dict = {}
+    for path, arr in flat.items():
+        name, leaf = _flax_leaf(path[:-1], path[-1], arr, flat)
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        if name in node:
+            raise ValueError(f"two port leaves map to {'/'.join(path[:-1])}"
+                             f"/{name}")
+        node[name] = np.array(leaf, np.float32)
+    return out
+
+
+def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested param tree as flat ``a/b/c`` keys (the JAX package's
+    quality-loop ``_flatten``)."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out.update(flatten_params(v, p))
+        else:
+            out[p] = np.asarray(v)
+    return out
+
+
+def save_flat_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> str:
+    """Write the port's ``state_dict`` as a flat ``.npz`` of flax params,
+    which the JAX package's MODEL.WEIGHTS and the port's both load."""
+    np.savez(path, **flatten_params(jax_params_from_state_dict(state_dict)))
+    return path
 
 
 def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:

@@ -57,5 +57,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "sylph_tpu_torch.evaluation.visualization",
                 "sylph_tpu_torch.tools.demo_inference",
                 "sylph_tpu_torch.parallel", "sylph_tpu_torch.parallel.mesh",
-                "sylph_tpu_torch.tools.bench_registration"}
+                "sylph_tpu_torch.tools.bench_registration",
+                "sylph_tpu_torch.tools.quality_loop",
+                "sylph_tpu_torch.tools.nms_audit",
+                "sylph_tpu_torch.tools.quality_seeds"}
     assert expected <= set(report["imported"])
