@@ -195,7 +195,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      the paths, the loss falls over each stage, bAP is above 0, and every
      NMS launch (each evaluation's) equals the twin; one ``quality`` line
      with the AP, each stage's times and idle share, and the kernel's time
-     at each shape the loop gave it.
+     at each shape the loop gave it;
+ 25. the repo's benchmark drivers at full width: ``tools/bench.py`` (the
+     root bench.py's query path: R-50, bf16 parameters, batch 48 at
+     768x1280, the normalized 20-class bank; 5 + 30 calls, then code
+     generation one class and 8 classes a call), ``tools/
+     bench_stage_breakdown.py`` at batch 16, ``entry.entry()`` once (512x512,
+     the zero bank: NMS over K = 4320) and ``tools/bench_train.py`` at its
+     defaults with 3 timed steps. Each driver's NMS launches are counted
+     around it alone (35, 21 and 1; training 0) and every one is held
+     against the twin afterwards (``tools/nms_audit.py``); the kernel is
+     timed at each new shape, and at B = 4 (the probes' batch) on the first
+     four images of the breakdown's input. bench.py's normalized bank leaves
+     nothing alive at B = 48 on random weights, so one more query call on
+     its model and images with the breakdown's random bank (every candidate
+     alive) holds the kernel against the twin at B = 48, K = 5000 on live
+     candidates, outside the counted windows. One ``bench`` line: img/s, ms a
+     batch, GFLOP an image and the share of the card's dense bf16 peak,
+     codegen ms a class, the stage ms, train episodes/s, peak memory, the
+     card.
 
 The last lines are the card's ``name, power.limit``, one JSON object
 listing every kernel with its launches (in all, by path and by ranking
@@ -203,8 +221,9 @@ route), error and times (``earlier_ms``: the first design's time on the
 serving path's NMS input; ``meta_test_ms``: the kernel on a B=8 meta-test
 batch; ``shapes``: phase 10's cases and the RPN-train inputs of phases
 14-15; ``launches_by_path`` counts the ranks' launches of phases 21-22 as
-``dp_meta_test`` and ``dp_rcnn_train``, and phase 24's as
-``quality_fcos_heldout``), and ``{"ok": true, "device":
+``dp_meta_test`` and ``dp_rcnn_train``, phase 24's as
+``quality_fcos_heldout``, and phase 25's as ``bench``, ``bench_stages``
+and ``entry``), and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -255,9 +274,15 @@ from sylph_tpu_torch.runner import (MetaFCOSRunner, _freeze_cfg, _mapper,
                                     build_model_from_cfg, create_runner)
 from sylph_tpu_torch.data.loader import batch_to_device
 from sylph_tpu_torch.data.transforms import draw_rand_augment
-from sylph_tpu_torch.tools import bench_registration, quality_loop
+from sylph_tpu_torch.entry import entry
+from sylph_tpu_torch.tools import (bench, bench_registration,
+                                   bench_stage_breakdown, bench_train,
+                                   quality_loop)
+from sylph_tpu_torch.tools.bench_common import (CANVAS, N_CLASSES,
+                                                QueryPath, query_images,
+                                                random_bank)
 from sylph_tpu_torch.tools.quality_loop import card_line
-from sylph_tpu_torch.tools.nms_audit import nms_bound_ms, time_ms
+from sylph_tpu_torch.tools.nms_audit import NMSAudit, nms_bound_ms, time_ms
 from sylph_tpu_torch.tools.profile_meta_test import DATA as META_TEST_DATA
 from sylph_tpu_torch.tools.profile_meta_test import (ONE_STAGE, RCNN_DATA,
                                                      meta_test_cfg,
@@ -2833,6 +2858,163 @@ def phase_quality(work: str, card: str):
     return {"quality_fcos_heldout": counts}, line
 
 
+BENCH_LAUNCHES = {"bench": 35, "bench_stages": 21, "entry": 1}
+
+
+def _bench_window(audit: NMSAudit, path: str, run):
+    """One driver of phase 25 with the kernel's counts read around it
+    alone, then its launches held against the twin. -> (its result, the
+    counts)."""
+    reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    counts = read_counts(path)
+    held = audit.flush(path)
+    if held != counts[0] or counts[0] != BENCH_LAUNCHES.get(path, 0):
+        raise AssertionError(f"{path}: {counts[0]} NMS launches, {held} "
+                             f"held against the twin, "
+                             f"{BENCH_LAUNCHES.get(path, 0)} expected")
+    return out, counts
+
+
+def _b4_row(sample):
+    """The probes' B = 4: the kernel on the first four images of a B = 16
+    input, held against the twin and timed as ``time_shapes`` times."""
+    planes, iou, m, _, _ = sample
+    planes = tuple(t[:4].contiguous() for t in planes)
+    x1, y1, x2, y2, scores, valid = planes
+    idx, ok = nms_kernel.nms_cuda(*planes, iou, m)
+    boxes = torch.stack([x1, y1, x2, y2], -1)
+    w_idx, w_ok = nms_select_reference(boxes, scores, valid.bool(), iou, m)
+    if not (torch.equal(idx.long(), w_idx.long())
+            and torch.equal(ok.bool(), w_ok)):
+        raise AssertionError("NMS kernel != twin at B=4")
+    ms = time_ms(lambda: nms_kernel.nms_cuda(*planes, iou, m), 20,
+                 graph=True)
+    plain_ms = time_ms(lambda: nms_select_reference(
+        boxes, scores, valid.bool(), iou, m), 3, warmup=1, rounds=3)
+    bound_ms, bound_by = nms_bound_ms(scores, valid.bool(), idx, ok.bool())
+    return dict(case=f"probes B=4 K={scores.shape[1]} M={m}", b=4,
+                k=scores.shape[1], m=m,
+                route=nms_kernel.select_route(4, scores.shape[1], m), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                launches=0, alive=int(valid.sum()))
+
+
+def _bench_live_row():
+    """bench.py's B = 48 with candidates alive: its model and images, the
+    bank swapped for the stage breakdown's ``random_bank``, which passes
+    every location through the score threshold (the normalized bank on
+    random weights passes none). One query call, its launch held against
+    the twin, then timed as ``time_shapes`` times; outside the counted
+    windows."""
+    model, _, _ = bench.build_query_path("cuda")
+    path = QueryPath(model, random_bank(N_CLASSES, "cuda"), CANVAS,
+                     bench.BATCH)
+    images = query_images(bench.BATCH, CANVAS, "cuda")
+    audit = NMSAudit().install()
+    try:
+        path(images)
+        torch.cuda.synchronize()
+        if audit.flush("bench_live") != 1:
+            raise AssertionError("bench at B=48 with the random bank: "
+                                 "expected one NMS launch")
+        (_, shape), = audit.shapes.items()
+        alive = int(shape["sample"][0][5].sum())
+        row, = audit.time_shapes()
+    finally:
+        audit.uninstall()
+    if alive == 0:
+        raise AssertionError("bench at B=48 with the random bank: nothing "
+                             "alive")
+    return dict(case=f"bench_live B={row['b']} K={row['k']} M={row['m']}",
+                b=row["b"], k=row["k"], m=row["m"], route=row["route"],
+                ms=row["kernel_ms"], plain_ms=row["twin_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                launches=0, alive=alive)
+
+
+def phase_bench(card: str):
+    """Phase 25: the port's counterparts of bench.py, the stage breakdown,
+    ``__graft_entry__.entry()`` and bench_train on the card, each driver's
+    NMS launches counted alone and held against the twin. -> (counts by
+    path, shape rows, the ``bench`` line)."""
+    t0 = time.perf_counter()
+    audit = NMSAudit().install()
+    try:
+        line, bench_counts = _bench_window(audit, "bench",
+                                           lambda: bench.run("cuda"))
+        stages, stage_counts = _bench_window(
+            audit, "bench_stages", lambda: bench_stage_breakdown.run("cuda"))
+
+        def run_entry():
+            fn, args = entry("cuda")
+            return fn(*args)
+        det, entry_counts = _bench_window(audit, "entry", run_entry)
+        if tuple(det.boxes.shape) != (1, 100, 4) or not bool(
+                det.valid.all()) or not bool(det.boxes.isfinite().all()):
+            raise AssertionError(f"entry(): {tuple(det.boxes.shape)}, "
+                                 f"{int(det.valid.sum())} valid")
+        train, train_counts = _bench_window(
+            audit, "bench_train", lambda: bench_train.run("cuda", iters=3))
+        wall = time.perf_counter() - t0
+        samples = {key[0]: row["sample"] for key, row in audit.shapes.items()}
+        shapes = []
+        for row in audit.time_shapes():
+            label, = row["launches_by_label"]
+            planes = samples[row["b"]][0]
+            shapes.append(dict(
+                case=f"{label} B={row['b']} K={row['k']} M={row['m']}",
+                b=row["b"], k=row["k"], m=row["m"], route=row["route"],
+                ms=row["kernel_ms"], plain_ms=row["twin_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                launches=row["launches"], alive=int(planes[5].sum())))
+    finally:
+        audit.uninstall()
+    shapes.append(_b4_row(samples[16]))
+    shapes.append(_bench_live_row())
+    for row in shapes:
+        log(f"[bench] NMS {row['case']}: {row['launches']} launches equal "
+            f"to the twin, {row['alive']} of {row['b'] * row['k']} alive; "
+            f"kernel {row['ms']:.4f} ms, twin {row['plain_ms']:.3f} ms, "
+            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+    extra = line["extra"]
+    bench_line = {
+        "bench": bench.METRIC, "img_per_sec": line["value"],
+        "ms_per_batch": extra["ms_per_batch"], "batch": extra["batch"],
+        "canvas": extra["canvas"], "gflop_per_image": extra["gflop_per_image"],
+        "gflop_per_image_backbone_fpn": extra["gflop_per_image_backbone_fpn"],
+        "gflop_per_image_head": extra["gflop_per_image_head"],
+        "bf16_dense_peak_share": extra["bf16_dense_peak_share"],
+        "codegen_ms_per_class": extra["codegen_ms_per_class"],
+        "codegen_ms_per_class_single_dispatch":
+            extra["codegen_ms_per_class_single_dispatch"],
+        "peak_memory_gb": extra["peak_memory_gb"],
+        "stages_b16": {k: stages[k] for k in (
+            "backbone_fpn_ms", "towers_cond_head_ms", "decode_nms_ms",
+            "total_ms", "img_per_sec")},
+        "train_episodes_per_sec": train["value"],
+        "train_sec_per_step": train["extra"]["sec_per_step"],
+        "nms_launches": {"bench": bench_counts[0],
+                         "bench_stages": stage_counts[0],
+                         "entry": entry_counts[0],
+                         "bench_train": train_counts[0]},
+        "wall_s": wall, "card": card}
+    log(f"[bench] batch 48 at 768x1280: {line['value']} img/s, "
+        f"{extra['ms_per_batch']:.2f} ms a batch, "
+        f"{extra['gflop_per_image']:.1f} GFLOP an image, "
+        f"{100 * extra['bf16_dense_peak_share']:.2f}% of the dense bf16 "
+        f"peak, peak memory {extra['peak_memory_gb']:.2f} GB; codegen "
+        f"{extra['codegen_ms_per_class']} / "
+        f"{extra['codegen_ms_per_class_single_dispatch']} ms a class; "
+        f"stages at 16: {stages['backbone_fpn_ms']} / "
+        f"{stages['towers_cond_head_ms']} / {stages['decode_nms_ms']} ms; "
+        f"train {train['value']} episodes/s; phase {wall:.1f} s")
+    counts = {"bench": bench_counts, "bench_stages": stage_counts,
+              "entry": entry_counts}
+    return counts, shapes, bench_line
+
+
 def main() -> int:
     os.environ.pop("SYLPH_TEST_MODE", None)  # it would cut the query set
     if not torch.cuda.is_available():
@@ -2885,18 +3067,21 @@ def main() -> int:
         t0 = time.perf_counter()
         quality_counts, quality_line = phase_quality(work, card)
         log(f"[time] phase 24: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bench_counts, bench_shapes, bench_line = phase_bench(card)
+        log(f"[time] phase 25: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[time] every phase, the builds included: "
         f"{time.perf_counter() - t_start:.1f} s")
-    shapes += [ep_case, rpre_case]
+    shapes += [ep_case, rpre_case, *bench_shapes]
 
     # every main-path window's reading: (launches, launches by route)
     counts = {"serve": serve_counts, "meta_test": meta_counts, **rcnn_counts,
               "rcnn_plain": plain_counts, "rcnn_train_episodic": ep_counts,
               "rcnn_train_pretrain": rpre_counts, "rcnn_train_tfa": tfa_counts,
               **roi_counts, **tfa1_counts, **dcn_counts, **dp_counts,
-              **quality_counts}
+              **quality_counts, **bench_counts}
     by_path = {path: n for path, (n, _) in counts.items()}
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the NMS kernel: "
@@ -2926,7 +3111,7 @@ def main() -> int:
     print(json.dumps(pretrain_line), flush=True)
     for line in (ep_line, rpre_line, tfa_line, roi_serve, roi_train,
                  *tfa1_lines, dcn_serve, dcn_train, *dp_train_lines, dp_line,
-                 registration_line, quality_line):
+                 registration_line, quality_line, bench_line):
         print(json.dumps(line), flush=True)
     print(json.dumps(rcnn_line), flush=True)
     print(card, flush=True)

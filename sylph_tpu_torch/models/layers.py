@@ -39,9 +39,10 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.weight, self.bias
         if x.dtype != torch.float32:
-            w, b = w.to(x.dtype).float(), b.to(x.dtype).float()
-        return F.group_norm(x.float(), self.num_groups, w, b,
-                            self.eps).to(x.dtype)
+            w, b = w.to(x.dtype), b.to(x.dtype)
+        # float32 sums whatever dtype the parameters are held in
+        return F.group_norm(x.float(), self.num_groups, w.float(),
+                            b.float(), self.eps).to(x.dtype)
 
 
 class Scale(nn.Module):

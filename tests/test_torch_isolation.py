@@ -60,5 +60,16 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "sylph_tpu_torch.tools.bench_registration",
                 "sylph_tpu_torch.tools.quality_loop",
                 "sylph_tpu_torch.tools.nms_audit",
-                "sylph_tpu_torch.tools.quality_seeds"}
+                "sylph_tpu_torch.tools.quality_seeds",
+                "sylph_tpu_torch.entry", "sylph_tpu_torch.tools.bench",
+                "sylph_tpu_torch.tools.bench_common",
+                "sylph_tpu_torch.tools.bench_stage_breakdown",
+                "sylph_tpu_torch.tools.bench_train",
+                "sylph_tpu_torch.tools.bench_pretrain_accum",
+                "sylph_tpu_torch.tools.bf16_fidelity_probe",
+                "sylph_tpu_torch.tools.bench_backbone_exp",
+                "sylph_tpu_torch.tools.bench_int8_probe",
+                "sylph_tpu_torch.tools.convert_checkpoint",
+                "sylph_tpu_torch.tools.visualize_class_codes",
+                "sylph_tpu_torch.tools.visualize_result"}
     assert expected <= set(report["imported"])
