@@ -213,7 +213,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      candidates, outside the counted windows. One ``bench`` line: img/s, ms a
      batch, GFLOP an image and the share of the card's dense bf16 peak,
      codegen ms a class, the stage ms, train episodes/s, peak memory, the
-     card.
+     card;
+ 26. the repeat check: ``tools/repeat_steps.py``'s training steps, three at
+     full width (phase 15's two-stage pretraining step, phase 14's episodic
+     one and phase 8's one-stage episodic one) and the ``tfa_rcnn`` quality
+     recipe's pretraining step (R-18 at 128x128), each run twice from one
+     saved train state and one batch of its loader: the sha256 of every
+     parameter, momentum and EMA leaf equal after both runs, every uniform
+     the sampling drew on the card equal to the CPU generator's stream for
+     its seed, every RPN NMS launch equal to the twin. One ``repeat`` line:
+     each step's digest, ms a step as shipped and with cuDNN left free
+     (``repeat_steps.free_kernels``), and the draws' cost (B x K uniforms
+     on the CPU plus the copy, against the same draw on the card).
 
 The last lines are the card's ``name, power.limit``, one JSON object
 listing every kernel with its launches (in all, by path and by ranking
@@ -222,8 +233,8 @@ serving path's NMS input; ``meta_test_ms``: the kernel on a B=8 meta-test
 batch; ``shapes``: phase 10's cases and the RPN-train inputs of phases
 14-15; ``launches_by_path`` counts the ranks' launches of phases 21-22 as
 ``dp_meta_test`` and ``dp_rcnn_train``, phase 24's as
-``quality_fcos_heldout``, and phase 25's as ``bench``, ``bench_stages``
-and ``entry``), and ``{"ok": true, "device":
+``quality_fcos_heldout``, phase 25's as ``bench``, ``bench_stages``
+and ``entry``, and phase 26's as ``repeat``), and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -277,7 +288,7 @@ from sylph_tpu_torch.data.transforms import draw_rand_augment
 from sylph_tpu_torch.entry import entry
 from sylph_tpu_torch.tools import (bench, bench_registration,
                                    bench_stage_breakdown, bench_train,
-                                   quality_loop)
+                                   quality_loop, repeat_steps)
 from sylph_tpu_torch.tools.bench_common import (CANVAS, N_CLASSES,
                                                 QueryPath, query_images,
                                                 random_bank)
@@ -1755,7 +1766,7 @@ def phase_rcnn_train_card_vs_cpu(devices=("cpu", "cuda")) -> None:
         for dev in devices:
             runner = MetaFasterRCNNRunner(
                 device=dev, draws=lambda it, g, m, d=dev:
-                rcnn.SampleDraws.for_step(0, it, g, d, draw_device="cpu"))
+                rcnn.SampleDraws.for_step(0, it, g, d))
             model = build_rcnn_model_from_cfg(cfg, device=dev, init="train")
             start = {k: v.clone() for k, v in model.state_dict().items()}
             state, _, _ = runner._common_train_setup(cfg, model)
@@ -3015,6 +3026,100 @@ def phase_bench(card: str):
     return counts, shapes, bench_line
 
 
+# ------------------------------------------------- the repeat check (26)
+class _DrawTap:
+    """Records every uniform a ``SampleDraws`` source hands out: its
+    generator's seed, the shape and the values, in call order."""
+
+    def __enter__(self):
+        self.draws = []
+        self.orig = rcnn.SampleDraws._uniform
+        tap = self
+
+        def recording(src, shape):
+            out = tap.orig(src, shape)
+            # the source is kept, so no other one takes its id
+            tap.draws.append((src, src.gen.initial_seed(), tuple(shape),
+                              out))
+            return out
+
+        rcnn.SampleDraws._uniform = recording
+        return self
+
+    def __exit__(self, *exc):
+        rcnn.SampleDraws._uniform = self.orig
+
+    def check(self, device: str) -> int:
+        """Every draw was on ``device`` and equals the CPU generator's
+        stream for its seed; -> the number of sources."""
+        gens = {}
+        for src, seed, shape, out in self.draws:
+            if out.device.type != device:
+                raise AssertionError(f"a draw landed on {out.device}")
+            gen = gens.setdefault(id(src),
+                                  torch.Generator().manual_seed(seed))
+            if not torch.equal(out.cpu(), torch.rand(shape, generator=gen)):
+                raise AssertionError(f"a draw of seed {seed}, shape {shape}, "
+                                     "differs from the CPU generator's")
+        return len(gens)
+
+
+def phase_repeat(work: str, card: str):
+    """Phase 26; -> (counts, the ``repeat`` line)."""
+    coco_tree(work)
+    lvis_tree(work)
+    line = {"repeat": {}, "card": card}
+    counts, routes = 0, {}
+    for name in repeat_steps.STEPS:
+        runner, cfg = repeat_steps.step_cfg(name, work)
+        case = repeat_steps.Case(runner, cfg)
+        with repeat_steps.free_kernels():
+            case.run()                                  # warm-up
+        with NMSRecorder() as rec, _DrawTap() as tap:
+            # ---- the main path: counts are read around this block alone
+            reset_counts()
+            digests, ms = [], []
+            for _ in range(2):
+                _, t = case.run()
+                digests.append(repeat_steps.state_digest(case.state))
+                ms.append(t)
+            n, by_route = read_counts(f"repeat:{name}")
+            # ---- end of the main path
+            n_calls, _ = rec.check(f"repeat:{name}")
+        if digests[0] != digests[1]:
+            raise AssertionError(f"repeat: {name} gave two states from one "
+                                 f"state and one batch: {digests}")
+        groups = max(1, cfg.TPU.GRAD_ACCUM)
+        want = 2 * groups if name.startswith("rcnn") else 0
+        if n != want or n_calls != want:
+            raise AssertionError(f"repeat: {name} made {n} NMS launches "
+                                 f"({n_calls} calls), expected {want}")
+        sources = tap.check("cuda")
+        if name.startswith("rcnn") and sources != 2 * groups:
+            raise AssertionError(f"repeat: {name} drew from {sources} "
+                                 "sources")
+        with repeat_steps.free_kernels():
+            free_ms = [case.run()[1] for _ in range(2)]
+        row = {"digest": digests[0], "runs_equal": True, "ms": ms,
+               "ms_cudnn_free": free_ms, "nms_launches": n,
+               "draw_sources": sources, "grad_accum": groups}
+        if name.startswith("rcnn"):
+            b, k = repeat_steps.rpn_draw_shape(cfg)
+            row["draws"] = repeat_steps.draw_ms(b, k)
+        line["repeat"][name] = row
+        counts += n
+        for r, c in by_route.items():
+            routes[r] = routes.get(r, 0) + c
+        log(f"[repeat] {name}: two runs from one state, digest "
+            f"{digests[0][:16]} both; {sources} draw sources equal to the "
+            f"CPU's; {n} NMS launches, each equal to the twin; "
+            f"{np.median(ms):.1f} ms a step (cuDNN free "
+            f"{np.median(row['ms_cudnn_free']):.1f})")
+        del case
+        torch.cuda.empty_cache()
+    return {"repeat": (counts, routes)}, line
+
+
 def main() -> int:
     os.environ.pop("SYLPH_TEST_MODE", None)  # it would cut the query set
     if not torch.cuda.is_available():
@@ -3070,6 +3175,9 @@ def main() -> int:
         t0 = time.perf_counter()
         bench_counts, bench_shapes, bench_line = phase_bench(card)
         log(f"[time] phase 25: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        repeat_counts, repeat_line = phase_repeat(work, card)
+        log(f"[time] phase 26: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[time] every phase, the builds included: "
@@ -3081,7 +3189,7 @@ def main() -> int:
               "rcnn_plain": plain_counts, "rcnn_train_episodic": ep_counts,
               "rcnn_train_pretrain": rpre_counts, "rcnn_train_tfa": tfa_counts,
               **roi_counts, **tfa1_counts, **dcn_counts, **dp_counts,
-              **quality_counts, **bench_counts}
+              **quality_counts, **bench_counts, **repeat_counts}
     by_path = {path: n for path, (n, _) in counts.items()}
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the NMS kernel: "
@@ -3111,7 +3219,8 @@ def main() -> int:
     print(json.dumps(pretrain_line), flush=True)
     for line in (ep_line, rpre_line, tfa_line, roi_serve, roi_train,
                  *tfa1_lines, dcn_serve, dcn_train, *dp_train_lines, dp_line,
-                 registration_line, quality_line, bench_line):
+                 registration_line, quality_line, bench_line,
+                 repeat_line):
         print(json.dumps(line), flush=True)
     print(json.dumps(rcnn_line), flush=True)
     print(card, flush=True)

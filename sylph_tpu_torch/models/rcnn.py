@@ -167,16 +167,13 @@ def rpn_proposals(obj_logits: torch.Tensor, deltas: torch.Tensor,
 # ---------------------------------------------------------------- sampling
 class SampleDraws:
     """The uniforms in [0, 1) that anchor and ROI sampling rank by, from one
-    ``torch.Generator`` seeded by ``seed`` (one source per micro-group of a
-    step: ``for_step``). Draws happen on ``draw_device`` and are moved to
-    ``device``, so a source on the CPU copied to the card gives both devices
-    the same values."""
+    CPU ``torch.Generator`` seeded by ``seed`` (one source per micro-group
+    of a step: ``for_step``), moved to ``device``: a seed gives the same
+    values on every device, as the ROIEncoder's dropout masks do."""
 
-    def __init__(self, seed: int, device: Union[str, torch.device],
-                 draw_device: Union[str, torch.device, None] = None):
+    def __init__(self, seed: int, device: Union[str, torch.device]):
         self.device = torch.device(device)
-        self.draw_device = torch.device(draw_device or device)
-        self.gen = torch.Generator(self.draw_device).manual_seed(seed)
+        self.gen = torch.Generator().manual_seed(seed)
 
     @staticmethod
     def step_seed(seed: int, iteration: int, group: int) -> int:
@@ -186,15 +183,14 @@ class SampleDraws:
         return int(s) & (2 ** 63 - 1)
 
     @classmethod
-    def for_step(cls, seed: int, iteration: int, group: int, device,
-                 draw_device=None) -> "SampleDraws":
+    def for_step(cls, seed: int, iteration: int, group: int,
+                 device) -> "SampleDraws":
         """The source of micro-group ``group`` at ``iteration``: a resumed run
         draws what an uninterrupted one draws."""
-        return cls(cls.step_seed(seed, iteration, group), device, draw_device)
+        return cls(cls.step_seed(seed, iteration, group), device)
 
     def _uniform(self, shape) -> torch.Tensor:
-        return torch.rand(shape, generator=self.gen,
-                          device=self.draw_device).to(self.device)
+        return torch.rand(shape, generator=self.gen).to(self.device)
 
     def rpn(self, b: int, k: int) -> torch.Tensor:
         """(B, K): each image's anchor priorities."""

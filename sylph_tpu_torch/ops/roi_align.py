@@ -13,6 +13,14 @@ the port's version is tensor code too. Every detail is kept:
   * a degenerate ROI edge (grid 0) gives zeros;
   * multilevel assignment ``floor(4 + log2(sqrt(area) / 224 + 1e-8))``,
     clamped to the levels present; invalid boxes give zeros.
+
+The bilinear taps read the map through ``_Gather``, whose backward sums
+each pixel's gradients in the order the taps name it, on either device, so
+a run repeats its bits. Autograd's own backward of the indexing
+(``index_put_`` with ``accumulate``) sorts the indices on the card and
+sums each run in order, but on the CPU it sums across threads in a
+varying order; ``_Gather`` keeps it on the card and uses ``index_add_``,
+which sums in index order, on the CPU.
 """
 
 from __future__ import annotations
@@ -83,6 +91,29 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor,
     return out.reshape(n, p, p, -1).permute(0, 3, 1, 2)
 
 
+class _Gather(torch.autograd.Function):
+    """``feat[b, y, x]`` of a (B, H, W, C) map with broadcast index
+    tensors; the backward sums each pixel's gradients in tap order."""
+
+    @staticmethod
+    def forward(ctx, feat, b, y, x):
+        ctx.save_for_backward(b, y, x)
+        ctx.shape = feat.shape
+        return feat[b, y, x]
+
+    @staticmethod
+    def backward(ctx, grad):
+        b, y, x = ctx.saved_tensors
+        _, h, w, c = ctx.shape
+        out = grad.new_zeros(ctx.shape)
+        if grad.is_cuda:   # sorts the indices, sums each run in order
+            out.index_put_((b.expand_as(y), y, x), grad, accumulate=True)
+        else:
+            out.view(-1, c).index_add_(0, ((b * h + y) * w + x).reshape(-1),
+                                       grad.reshape(-1, c))
+        return out, None, None, None
+
+
 def _bilinear_pool(features, batch_idx, ys, xs, valid_y, valid_x, count,
                    h, w):
     """Masked-average bilinear samples: ys/xs (N,P,S) -> (N, P*P, C)."""
@@ -106,7 +137,7 @@ def _bilinear_pool(features, batch_idx, ys, xs, valid_y, valid_x, count,
     b = batch_idx[:, None]
 
     def gather(yi, xi):
-        return feat[b, yi, xi]  # (N, PPSS, C)
+        return _Gather.apply(feat, b, yi, xi)  # (N, PPSS, C)
 
     wy1, wx1 = ly[..., None], lx[..., None]
     wy0, wx0 = 1.0 - wy1, 1.0 - wx1

@@ -404,6 +404,25 @@ def _eval_grid(cfg):
         list(cfg.MODEL.FCOS.SIZES_OF_INTEREST))
 
 
+def _print_memory_report(device: torch.device) -> bool:
+    """Print one train step's peak memory (SYLPH_MEMORY_REPORT=1): the
+    allocator's peaks since ``reset_peak_memory_stats`` at the step's start.
+    Returns False (report done) so the loop clears the flag. Without a card
+    it prints the "report unavailable" form; it never breaks training."""
+    try:
+        if device.type != "cuda":
+            raise RuntimeError(f"no allocator statistics on {device}")
+        rep = {"max_memory_allocated_gb": torch.cuda.max_memory_allocated(
+                   device) / 1e9,
+               "max_memory_reserved_gb": torch.cuda.max_memory_reserved(
+                   device) / 1e9}
+        print("[memory] train-step peak (torch.cuda): "
+              + "  ".join(f"{k}={v:.3f}" for k, v in rep.items()))
+    except Exception as e:  # noqa: BLE001 — never break training over it
+        print(f"[memory] report unavailable: {e}")
+    return False
+
+
 class MetaFCOSRunner:
     """Config, model, ``do_train`` (pretraining or episodic meta-training),
     evaluator dispatch and ``do_test`` on ``device`` (default ``"cuda"``,
@@ -433,7 +452,24 @@ class MetaFCOSRunner:
         (``init="train"``: the flax initializers' distributions), then
         MODEL.WEIGHTS over it."""
         model = build_model_from_cfg(cfg, device=self.device, init=init)
-        return self._load_weights(cfg, model)
+        model = self._load_weights(cfg, model)
+        self._log_model_stats(cfg, model)
+        return model
+
+    @staticmethod
+    def _log_model_stats(cfg, model: nn.Module) -> None:
+        """The JAX package's parameter-count line at build time: every leaf
+        of its parameter tree (the port's parameters and the FrozenBN
+        buffers, which are flax params there) and the trainable ones under
+        the port's freeze rule. That rule keeps FrozenBN constant, where the
+        JAX rule trains the bottleneck FrozenBN with the backbone, so the
+        trainable counts agree wherever the backbone is frozen."""
+        total = sum(v.numel() for v in model.state_dict().values())
+        mask = build_freeze_mask(model, _freeze_cfg(cfg))
+        trainable = sum(p.numel() for n, p in model.named_parameters()
+                        if mask[n])
+        print(f"[model] params: {total / 1e6:.2f}M total, "
+              f"{trainable / 1e6:.2f}M trainable")
 
     @staticmethod
     def _load_weights(cfg, model: MetaOneStageDetector):
@@ -490,10 +526,6 @@ class MetaFCOSRunner:
             if self.group is not None:
                 self.group.barrier()  # rank 0's last save is complete
             state, _ = ckpt.restore(state)
-        n_train = sum(int(m) for m in build_freeze_mask(
-            model, _freeze_cfg(cfg)).values())
-        print(f"[model] {sum(1 for _ in model.parameters())} parameter "
-              f"tensors, {n_train} trainable")
         return state, schedule, ckpt
 
     def _train_loop(self, cfg, state, step_fn, batches, schedule, ckpt,
@@ -502,11 +534,13 @@ class MetaFCOSRunner:
         checkpoints every SOLVER.CHECKPOINT_PERIOD and at the end, and the
         TEST.EVAL_PERIOD hook; metrics and checkpoints on rank 0 alone.
         ``self.loop_times`` keeps each iteration's data wait and step wait
-        (printed with SYLPH_TIME_LOOP=1)."""
+        (printed with SYLPH_TIME_LOOP=1). SYLPH_MEMORY_REPORT=1 prints the
+        first step's peak memory once."""
         max_iter = cfg.SOLVER.MAX_ITER
         eval_period = cfg.TEST.EVAL_PERIOD
         writer = MetricsWriter(cfg.OUTPUT_DIR if self.is_main else None)
         checker = AbnormalLossChecker()
+        mem_report = bool(os.environ.get("SYLPH_MEMORY_REPORT"))
         time_loop = bool(os.environ.get("SYLPH_TIME_LOOP"))
         self.loop_times = []
         self.train_metrics = []
@@ -516,9 +550,13 @@ class MetaFCOSRunner:
                 t_loop = time.perf_counter()
                 batch = next(batches)
                 t_data = time.perf_counter()
+                if mem_report and self.device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(self.device)
                 state, metrics = step_fn(state, batch)
                 m = {k: float(v) for k, v in metrics.items()}
                 t_step = time.perf_counter()
+                if mem_report:
+                    mem_report = _print_memory_report(self.device)
                 self.loop_times.append((t_data - t_loop, t_step - t_data))
                 self.train_metrics.append(m)
                 if time_loop:

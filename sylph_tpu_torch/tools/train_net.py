@@ -3,7 +3,8 @@
 
     python3 -m sylph_tpu_torch.tools.train_net [--runner MetaFCOSRunner] \
         --config-file sylph://COCO-Detection/Meta-FCOS/Meta-FCOS-finetune.yaml \
-        [--eval-only] [--output-dir DIR] [--datasets-root datasets/coco] \
+        [--eval-only] [--resume] [--output-dir DIR] \
+        [--datasets-root datasets/coco] \
         [--lvis-root datasets/lvis] [--device cuda] [KEY VALUE ...]
 
 On N cards, one process per card, through torchrun (it ships with torch):
@@ -41,7 +42,7 @@ import os
 from ..data.catalog import register_all_coco, register_all_lvis
 from ..parallel.mesh import DataGroup, create_mesh
 from ..runner import create_runner
-from ..utils.setup import setup_after_launch
+from ..utils.setup import post_mortem_if_fail, setup_after_launch
 
 
 def apply_test_mode(cfg):
@@ -137,11 +138,15 @@ def _ensure_test_mode_lvis(lvis_root: str, coco_root: str) -> None:
     make_synthetic_lvis(lvis_root, coco_root)
 
 
+@post_mortem_if_fail
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--runner", default="MetaFCOSRunner")
     p.add_argument("--config-file", required=True)
     p.add_argument("--eval-only", action="store_true")
+    # as in the JAX package: on by default, and training always resumes
+    # from {OUTPUT_DIR}/ckpt when it holds a checkpoint
+    p.add_argument("--resume", action="store_true", default=True)
     p.add_argument("--output-dir", default=None)
     p.add_argument("--datasets-root", default="datasets/coco")
     p.add_argument("--lvis-root", default="datasets/lvis")

@@ -13,7 +13,9 @@
   * ``filter_params_by_module`` (MODEL.WEIGHTS_FILTER_BY_MODULE) and
     ``merge_state_dict``: loaded leaves overlay the model's, a shape
     mismatch is skipped, and a checkpoint where most leaves mismatch is
-    refused.
+    refused;
+  * ``save_code_bank`` / ``load_code_bank``: a code bank as an ``.npz`` of
+    numpy arrays with its ``class_names``, the JAX package's file format.
 """
 
 from __future__ import annotations
@@ -158,3 +160,22 @@ def merge_state_dict(model: nn.Module, loaded: Mapping[str, torch.Tensor]
             "the wrong checkpoint for this architecture, refusing to "
             "continue on mostly-random weights")
     return model
+
+
+# ---------------------------------------------------------------- code banks
+def save_code_bank(path: str, bank: Mapping[str, np.ndarray],
+                   class_names: Optional[List[str]] = None) -> None:
+    """Write ``bank`` (name -> array) to the ``.npz`` at ``path``, with
+    ``class_names`` as one more array when given."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    payload = dict(bank)
+    if class_names is not None:
+        payload["class_names"] = np.asarray(class_names)
+    np.savez(path, **payload)
+
+
+def load_code_bank(path: str) -> Dict[str, np.ndarray]:
+    """Every array of a bank written by ``save_code_bank`` (either
+    package's), ``class_names`` included."""
+    data = np.load(path, allow_pickle=False)
+    return {k: data[k] for k in data.files}

@@ -28,6 +28,11 @@ over the ranks in one all-reduce before the update, so the gradient clip
 sees the global gradient (JAX's ``pmean`` before the optax chain). W ranks
 of m groups compute what one process of W * m groups computes.
 
+Every step runs its forward and backward passes under
+``deterministic_kernels`` (cuDNN held to deterministic algorithms, the
+flags restored after), so one state and one batch give the same bits on
+every run on the card, as the JAX package's step does on any device.
+
 The episodic step hands each group's forward a CPU ``torch.Generator``
 seeded from (seed, iteration, global group) for the ROIEncoder's dropout,
 so a resumed run draws what an uninterrupted one does, and W ranks draw
@@ -45,13 +50,15 @@ so the mean over the groups is JAX's pmean. They apply no RandAugment:
 the JAX package's two-stage steps never read the drawn ops. Each group
 samples anchors and ROIs by the draw source ``draws(iteration, group,
 groups)`` gives it (the global group index and count), by default
-``SampleDraws.for_step(seed, iteration, group)`` on the model's device.
+``SampleDraws.for_step(seed, iteration, group)``, whose uniforms come from
+a CPU generator on every device.
 Only their gradients and losses are averaged across ranks; each group
 keeps its own normalizers, as in JAX's ``finalize_step``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -112,6 +119,21 @@ def _ranks(group: Optional[DataGroup]) -> Tuple[int, int]:
     return (group.rank, group.world) if group is not None else (0, 1)
 
 
+@contextlib.contextmanager
+def deterministic_kernels():
+    """cuDNN held to its deterministic algorithms, benchmark off, for the
+    scope; both flags restored on exit. Left free, cuDNN may pick backward
+    algorithms that sum in a varying order, and a step then differs from
+    run to run on the card."""
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+
+
 def _run_micro_groups(state: TrainState, m: int,
                       loss_at: Callable[[int], Dict[str, torch.Tensor]],
                       group: Optional[DataGroup] = None
@@ -121,13 +143,14 @@ def _run_micro_groups(state: TrainState, m: int,
     update; returns the losses."""
     state.tx.zero_grad()
     acc: Optional[Dict[str, torch.Tensor]] = None
-    for gi in range(m):
-        losses = loss_at(gi)
-        total = sum(losses.values())
-        if total.requires_grad:
-            total.backward()
-        det = {k: v.detach() for k, v in losses.items()}
-        acc = det if acc is None else {k: acc[k] + det[k] for k in acc}
+    with deterministic_kernels():
+        for gi in range(m):
+            losses = loss_at(gi)
+            total = sum(losses.values())
+            if total.requires_grad:
+                total.backward()
+            det = {k: v.detach() for k, v in losses.items()}
+            acc = det if acc is None else {k: acc[k] + det[k] for k in acc}
     if m > 1:
         scale = 1.0 / m
         grads = [p.grad for p in state.tx.params if p.grad is not None]

@@ -2,8 +2,8 @@
 sylph_tpu/utils/events.py).
 
 ``MetricsWriter`` appends one ``metrics.json`` line per iteration, writes the
-same scalars as TensorBoard events (``utils/tb_writer.py``) and prints every
-``PRINT_EVERY`` iterations with the card's peak memory
+same scalars as TensorBoard events (``utils/tb_writer.py``) unless told not
+to, and prints every ``print_every`` iterations with the card's peak memory
 (``torch.cuda.max_memory_allocated``, the reference's ``max_mem``).
 ``AbnormalLossChecker`` flags non-finite losses and spikes against a window.
 """
@@ -21,17 +21,18 @@ import torch
 
 from .tb_writer import TBEventWriter
 
-PRINT_EVERY = 20
-
 
 class MetricsWriter:
-    def __init__(self, output_dir: Optional[str] = None):
+    def __init__(self, output_dir: Optional[str] = None,
+                 print_every: int = 20, tensorboard: bool = True):
+        self.print_every = print_every
         self._f = None
         self._tb = None
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
             self._f = open(os.path.join(output_dir, "metrics.json"), "a")
-            self._tb = TBEventWriter(os.path.join(output_dir, "tb"))
+            if tensorboard:
+                self._tb = TBEventWriter(os.path.join(output_dir, "tb"))
         self._last = time.perf_counter()
 
     def write(self, step: int, metrics: Dict[str, float],
@@ -46,9 +47,9 @@ class MetricsWriter:
         if self._tb:
             self._tb.add_scalars(step, {k: v for k, v in row.items()
                                         if k != "iteration"})
-        if step % PRINT_EVERY == 0:
+        if step % self.print_every == 0:
             now = time.perf_counter()
-            rate = PRINT_EVERY / max(now - self._last, 1e-9)
+            rate = self.print_every / max(now - self._last, 1e-9)
             self._last = now
             losses = "  ".join(f"{k}: {float(v):.4f}"
                                for k, v in metrics.items())

@@ -1,11 +1,14 @@
 """Launch helpers (port of sylph_tpu/utils/setup.py): the environment
-summary, the config diff and ``setup_after_launch``, which writes
+summary, the config diff, ``setup_after_launch``, which writes
 ``config.yaml``, ``config_diff.yaml`` and ``env.txt`` into the output
-directory (reference tools/setup.py: setup_after_launch, dump_cfg).
+directory (reference tools/setup.py: setup_after_launch, dump_cfg), and
+``post_mortem_if_fail``, which drops into pdb on an uncaught exception when
+SYLPH_POST_MORTEM=1.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import platform
 import sys
@@ -67,3 +70,23 @@ def setup_after_launch(cfg, output_dir: str, default_cfg=None) -> None:
 
 def _plain(d):
     return {k: _plain(v) if isinstance(v, dict) else v for k, v in d.items()}
+
+
+def post_mortem_if_fail(fn=None):
+    """Decorator: drop into ``pdb.post_mortem`` on an uncaught exception when
+    SYLPH_POST_MORTEM=1, then re-raise (the reference wraps main with
+    mobile_cv's post_mortem_if_fail)."""
+    def deco(f):
+        @functools.wraps(f)
+        def wrapped(*a, **kw):
+            try:
+                return f(*a, **kw)
+            except Exception:
+                if os.environ.get("SYLPH_POST_MORTEM"):
+                    import pdb
+                    import traceback
+                    traceback.print_exc()
+                    pdb.post_mortem()
+                raise
+        return wrapped
+    return deco(fn) if fn is not None else deco
