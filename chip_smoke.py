@@ -26,8 +26,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      dense outputs decoded with the twin, each device canvas against the
      same resize on the CPU (1e-3 on the 0-255 scale), and host and device
      preprocessing are timed side by side;
-  5. card against CPU: the same predictor in float32 at a 256x256 canvas
-     on cuda and on cpu; dense outputs to rtol 1e-3 / atol 5e-3, detections
+  5. card against CPU: the same predictor in float32 (its weights held in
+     float32 on the card too) at a 256x256 canvas on cuda and on cpu; dense outputs to rtol 1e-3 / atol 5e-3, detections
      to boxes 0.05, scores 1e-3, equal classes;
   6. the two-phase meta-test at full width: the same config in bf16 with
      EVAL_BATCH 8 and CLASS_BATCH 8, on a synthetic COCO tree made by
@@ -224,7 +224,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      its seed, every RPN NMS launch equal to the twin. One ``repeat`` line:
      each step's digest, ms a step as shipped and with cuDNN left free
      (``repeat_steps.free_kernels``), and the draws' cost (B x K uniforms
-     on the CPU plus the copy, against the same draw on the card).
+     on the CPU plus the copy, against the same draw on the card);
+ 27. the config switches: ``TPU.STEPS_PER_CALL`` (phase 8's one-stage
+     episodic step and phase 15's two-stage pretraining step, each over the
+     same 4 loader batches from one saved state as 4 calls of one step and
+     as 2 calls of two: the sha256 of the parameters, momentum and EMA and
+     the 4 metric rows equal, every RPN NMS launch equal to the twin, ms a
+     step both ways; ``tools/bench_train.py --steps-per-call 2``);
+     ``TPU.S2D_STEM`` (R-50 at 1024x1344, the 7x7 model's
+     weights carried to the s2d one by ``merge_state_dict``: in float32
+     with TF32 off, dense outputs and detections within phase 5's limits;
+     in bf16 both served as phase 17 serves, each launch equal to the twin,
+     dense outputs within 5% of their range; the stem conv's ms both ways
+     at B = 1, 1024x1344 and B = 48, 768x1280); ``TPU.EVAL_BF16_RESIDENT``
+     (``SylphPredictor`` under the default config holds every floating
+     weight in bf16 and its bank in float32; its requests against the
+     float32-held predictor on the same weights within
+     tests/test_torch_bf16.py's limits, each served as phase 17 serves,
+     with ms a request and peak memory both ways, then both side by side
+     in turns (f32, bf16, bf16, f32, f32, bf16) for ms a request free of
+     the order; phase 8's episodic
+     training for 2 steps with an evaluation after the first, EMA on,
+     equal by sha256 to the same run without it, the evaluation on bf16
+     weights and the weights float32 before and after); and one dilation-2
+     ``DFConv2d`` on the card against the CPU (phase 20's limits). One
+     ``switches`` line.
 
 The last lines are the card's ``name, power.limit``, one JSON object
 listing every kernel with its launches (in all, by path and by ranking
@@ -234,13 +258,16 @@ batch; ``shapes``: phase 10's cases and the RPN-train inputs of phases
 14-15; ``launches_by_path`` counts the ranks' launches of phases 21-22 as
 ``dp_meta_test`` and ``dp_rcnn_train``, phase 24's as
 ``quality_fcos_heldout``, phase 25's as ``bench``, ``bench_stages``
-and ``entry``, and phase 26's as ``repeat``), and ``{"ok": true, "device":
-{...}}``.
+and ``entry``, phase 26's as ``repeat``, and phase 27's as
+``switches_k_steps`` and ``switches_{7x7,s2d,f32_held,bf16_held}_serve``),
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -300,8 +327,12 @@ from sylph_tpu_torch.tools.profile_meta_test import (ONE_STAGE, RCNN_DATA,
                                                      rcnn_meta_test_cfg)
 from sylph_tpu_torch.tools.profile_train import (rcnn_train_cfg, train_cfg,
                                                  variant_train_cfg)
-from sylph_tpu_torch.train.checkpoint import CheckpointManager
+from sylph_tpu_torch.models.resnet import stem_kernel_from_s2d
+from sylph_tpu_torch.train import steps as train_steps
+from sylph_tpu_torch.train.checkpoint import (CheckpointManager,
+                                              merge_state_dict)
 from sylph_tpu_torch.utils.events import peak_memory_gb
+from sylph_tpu_torch.utils.precision import eval_resident
 
 CONFIG = "sylph://COCO-Detection/Meta-FCOS/Meta-FCOS-finetune.yaml"
 ADVERSARIAL = ("identical_boxes", "no_overlap", "dense_clusters",
@@ -780,6 +811,7 @@ def phase_card_vs_cpu(devices=("cuda", "cpu")) -> None:
     cfg = get_default_cfg()
     cfg.merge_from_file(CONFIG)
     cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.EVAL_BF16_RESIDENT = False  # float32-held on the card too
     cfg.TPU.EVAL_CANVAS = [256, 256]
     cfg.TPU.SUPPORT_CANVAS = [128, 128]
     cfg.INPUT.MIN_SIZE_TEST = 256
@@ -1307,7 +1339,10 @@ def phase_rcnn_meta_test(work: str):
              for f in os.listdir(code_dir)}
     if any(c["code"]["cls_conv"].shape != (1, 1024) for c in codes.values()):
         raise AssertionError("class codes are not 1024 wide")
-    reloaded = meta_eval.normalize_class_codes(model, codes)
+    # normalized as do_test normalized them: on the weights the config
+    # holds for evaluation (bf16 on the card by default)
+    with eval_resident(cfg, model):
+        reloaded = meta_eval.normalize_class_codes(model, codes)
     for key in ("cls_conv", "cls_bias"):
         np.testing.assert_allclose(reloaded[key], driver.bank[key], rtol=0,
                                    atol=1e-6, err_msg=key)
@@ -2244,6 +2279,7 @@ def _small_variant_cfg(runner_name: str, **opts):
     cfg = variant_serving_cfg(runner_name, opts.pop("deformable", False))
     cfg.merge_from_list([x for kv in opts.items() for x in kv])
     cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.EVAL_BF16_RESIDENT = False  # float32-held on the card too
     cfg.TPU.EVAL_CANVAS = [256, 256]
     cfg.TPU.SUPPORT_CANVAS = [128, 128]
     return cfg
@@ -3120,6 +3156,440 @@ def phase_repeat(work: str, card: str):
     return {"repeat": (counts, routes)}, line
 
 
+# ------------------------------------------------- the switches (27)
+SWITCH_STEPS = ("fcos_episodic", "rcnn_pretrain")  # phases 8 and 15
+SWITCH_BATCHES = 4
+STEM_SHAPES = ((1, (1024, 1344)), (48, (768, 1280)))
+
+
+def _k_step_case(name: str, work: str):
+    """Phase 8's or phase 15's step over the same 4 loader batches from one
+    saved state, as 4 calls of one step and as 2 calls of two: -> the
+    ``steps_per_call`` row. Raises unless the state digests (parameters,
+    momentum, EMA) and the metric rows are equal."""
+    runner, cfg = repeat_steps.step_cfg(name, work)
+    model = runner.build_model(cfg, init="train")
+    state, _, _ = runner._common_train_setup(cfg, model)
+    loader = (runner._episodic_loader(cfg)
+              if cfg.MODEL.META_LEARN.EPISODIC_LEARNING
+              else runner._pretrain_loader(cfg))
+    batches = [next(loader) for _ in range(SWITCH_BATCHES)]
+    loader.close()
+    saved = repeat_steps._clone(state.state_dict())
+    # no warm-up: phase 26 ran the same steps (cuDNN plans, the allocator)
+    ways = {}
+    for k in (1, 2):
+        kcfg = cfg.clone()
+        kcfg.defrost()
+        kcfg.TPU.STEPS_PER_CALL = k
+        step = runner.make_train_step(kcfg, model)
+        state.load_state_dict(saved)
+        rows = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, SWITCH_BATCHES, k):
+            batch = (batches[i] if k == 1
+                     else train_steps.stack_batches(batches[i:i + k]))
+            state, metrics = step(state, batch)
+            rows += train_steps.metric_rows(metrics, k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / SWITCH_BATCHES
+        ways[k] = (repeat_steps.state_digest(state), rows, ms)
+    (d1, r1, ms1), (d2, r2, ms2) = ways[1], ways[2]
+    if d1 != d2 or r1 != r2:
+        raise AssertionError(f"switches: {name} in calls of 2 steps gave "
+                             f"{d2[:16]} / {r2}, in calls of 1 {d1[:16]} / "
+                             f"{r1}")
+    if not all(np.isfinite(v) for r in r1 for v in r.values()):
+        raise AssertionError(f"switches: {name}: non-finite losses {r1}")
+    log(f"[switches] {name}: {SWITCH_BATCHES} steps as 2 calls of 2 equal "
+        f"4 calls of 1 (digest {d1[:16]}, {len(r1)} metric rows); "
+        f"{ms1:.1f} / {ms2:.1f} ms a step (K = 1 / 2)")
+    return {"digest": d1, "equal": True, "steps": SWITCH_BATCHES,
+            "grad_accum": max(1, cfg.TPU.GRAD_ACCUM), "ms_per_step_k1": ms1,
+            "ms_per_step_k2": ms2}
+
+
+def _dense_rel_errs(a, b) -> dict:
+    """max |a - b| / max |b| per dense output (tests/test_torch_bf16.py)."""
+    return {n: float((getattr(a, n).float() - getattr(b, n).float()).abs()
+                     .max() / getattr(b, n).float().abs().max().clamp_min(
+                         1e-12))
+            for n in ("logits", "reg", "ctrness", "iou")}
+
+
+def match_detections(a, b, strides, what: str) -> dict:
+    """tests/test_torch_bf16.py's limits for two bf16 pipelines: a
+    detection's counterpart has the same class and FPN level, coordinates
+    within a tenth of the level's stride and score within 0.005. Below
+    every slot the counts may differ by two, and each detection of the
+    shorter list has a counterpart. Where a list fills every slot, its
+    lowest score is a cut like the threshold: each detection of either
+    list has a counterpart but for those within 0.005 of the cut (which of
+    two near-tied candidates makes it may differ). -> the counts matched
+    and exempted."""
+    def rows(d):
+        k = d.valid[0].cpu()
+        return list(zip(d.classes[0].cpu()[k].tolist(),
+                        d.fpn_levels[0].cpu()[k].tolist(),
+                        d.boxes[0].cpu()[k].numpy(),
+                        d.scores[0].cpu()[k].tolist()))
+    ra, rb = rows(a), rows(b)
+    slots = a.valid.shape[1]
+    cuts = [min(r[3] for r in x) for x in (ra, rb) if len(x) == slots]
+    if cuts:
+        cut = max(cuts)
+        passes = ((ra, rb), (rb, ra))
+    else:
+        if abs(len(ra) - len(rb)) > 2 or min(len(ra), len(rb)) == 0:
+            raise AssertionError(f"{what}: {len(ra)} against {len(rb)} "
+                                 "detections")
+        cut = -1.0
+        passes = ((ra, rb),) if len(ra) <= len(rb) else ((rb, ra),)
+    out = {"matched": 0, "near_cut": 0}
+    for mine, other in passes:
+        free = list(range(len(other)))
+        for cls, lvl, box, score in mine:
+            tol = strides[lvl] / 10
+            hit = [i for i in free if other[i][0] == cls
+                   and other[i][1] == lvl
+                   and np.abs(other[i][2] - box).max() <= tol
+                   and abs(other[i][3] - score) <= 0.005]
+            if hit:
+                free.remove(hit[0])
+                out["matched"] += 1
+            elif score <= cut + 0.005:
+                out["near_cut"] += 1
+            else:
+                raise AssertionError(f"{what}: no counterpart for class "
+                                     f"{cls} box {box} score {score} (cut "
+                                     f"{cut})")
+    return out
+
+
+def _stem_pair(cfg):
+    """The seeded 7x7 model of ``cfg`` on the CPU and its s2d rewrite, the
+    weights carried across by ``merge_state_dict``; raises unless the stem
+    came across exactly."""
+    model7 = create_runner("MetaFCOSRunner", device="cpu").build_model(cfg)
+    cfg4 = cfg.clone()
+    cfg4.TPU.S2D_STEM = True
+    model4 = merge_state_dict(build_model_from_cfg(cfg4, device="cpu",
+                                                   seed=99),
+                              model7.state_dict())
+    w7, w4 = (m.backbone.stem_conv1.weight for m in (model7, model4))
+    if tuple(w4.shape) != (64, 12, 4, 4) or not torch.equal(
+            stem_kernel_from_s2d(w4), w7):
+        raise AssertionError(f"s2d: the stem came across as {w4.shape}")
+    return (cfg, model7), (cfg4, model4)
+
+
+def _s2d_exact_fp32() -> dict:
+    """The 7x7 model and its s2d rewrite in float32 (TF32 off), served
+    side by side on 2 requests: dense outputs and detections within phase
+    5's limits."""
+    _exact_fp32()
+    cfg = serving_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.EVAL_BF16_RESIDENT = False
+    preds = [SylphPredictor(cfg=c, model=m, max_classes=8)
+             for c, m in _stem_pair(cfg)]
+    for pred in preds:
+        register(pred, np.random.RandomState(27), ["class_a", "class_b"], 3)
+    rng = np.random.RandomState(28)
+    worst, n_det = {}, 0
+    for h, w in REQUEST_SIZES[:2]:
+        img = random_image(rng, h, w)
+        outs = []
+        for pred in preds:
+            canvas, size, _ = pred.prepare(img)
+            out = pred.dense(canvas)
+            outs.append((out, pred.decode(out, size, pred.bank.valid)))
+        (o7, d7), (o4, d4) = outs
+        for n in ("logits", "reg", "ctrness", "iou"):
+            np.testing.assert_allclose(
+                getattr(o4, n).cpu().numpy(), getattr(o7, n).cpu().numpy(),
+                rtol=1e-3, atol=5e-3, err_msg=f"s2d fp32 {n}")
+            worst[n] = max(worst.get(n, 0.0), float(
+                (getattr(o4, n) - getattr(o7, n)).abs().max()))
+        k4, k7 = d4.valid[0], d7.valid[0]
+        if int(k4.sum()) != int(k7.sum()) or int(k7.sum()) == 0:
+            raise AssertionError(f"s2d fp32: {int(k4.sum())} against "
+                                 f"{int(k7.sum())} detections")
+        np.testing.assert_allclose(d4.boxes[0][k4].cpu().numpy(),
+                                   d7.boxes[0][k7].cpu().numpy(), atol=0.05)
+        np.testing.assert_allclose(d4.scores[0][k4].cpu().numpy(),
+                                   d7.scores[0][k7].cpu().numpy(), atol=1e-3)
+        if not torch.equal(d4.classes[0][k4], d7.classes[0][k7]):
+            raise AssertionError("s2d fp32: classes differ")
+        n_det += int(k7.sum())
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    del preds
+    torch.cuda.empty_cache()
+    return {"dense_max_abs_diff": worst, "detections": n_det}
+
+
+def _stem_ms(model7, model4) -> dict:
+    """The stem conv alone in bf16 (the s2d one with its rearrangement and
+    padding), CUDA events around graph replays."""
+    out = {}
+    for b, (h, w) in STEM_SHAPES:
+        x = torch.randn(b, 3, h, w, device="cuda", dtype=torch.bfloat16)
+        row = {}
+        for key, model in (("7x7", model7), ("s2d", model4)):
+            conv = model.backbone.stem_conv1
+            with torch.inference_mode():
+                row[f"{key}_ms"] = time_ms(lambda: conv(x), reps=20,
+                                           graph=True)
+        out[f"b{b}_{h}x{w}"] = row
+        del x
+    return out
+
+
+def _switch_s2d(card: str):
+    """The s2d stem at full width on weights carried from the 7x7 model by
+    ``merge_state_dict``: exact in float32, then served in bf16 both ways
+    (the default config's bf16-held weights). -> (counts, the row)."""
+    exact = _s2d_exact_fp32()
+    log(f"[switches] s2d stem fp32 (TF32 off), 2 requests: dense outputs "
+        f"within {max(exact['dense_max_abs_diff'].values()):.2e} of the 7x7 "
+        f"model's, {exact['detections']} detections within phase 5's limits")
+    (cfg7, model7), (cfg4, model4) = _stem_pair(serving_cfg())
+    pred7 = SylphPredictor(cfg=cfg7, model=model7)
+    pred4 = SylphPredictor(cfg=cfg4, model=model4)
+    counts, lines = {}, {}
+    for label, pred in (("switches_7x7_serve", pred7),
+                        ("switches_s2d_serve", pred4)):
+        counts[label], lines[label] = serve_and_check(pred, label, card)
+    img = random_image(np.random.RandomState(29), 800, 1216)
+    outs = [pred.dense(pred.prepare(img)[0]) for pred in (pred7, pred4)]
+    errs = _dense_rel_errs(outs[1], outs[0])
+    if max(errs.values()) > 0.05:
+        raise AssertionError(f"s2d bf16 dense outputs: {errs}")
+    log(f"[switches] s2d stem bf16: dense outputs within "
+        f"{max(errs.values()):.4f} of the range of the 7x7 model's ({errs})")
+    stem = _stem_ms(pred7.model, pred4.model)
+    for shape, row in stem.items():
+        log(f"[switches] stem {shape} bf16: 7x7 {row['7x7_ms']:.4f} ms, "
+            f"s2d {row['s2d_ms']:.4f} ms")
+    row = {"fp32": exact, "bf16_dense_rel_err": errs, "stem": stem,
+           "request_ms": {k: v["median_request_ms"]
+                          for k, v in lines.items()},
+           "nms_launches": {k: c[0] for k, c in counts.items()}}
+    del pred7, pred4, model7, model4
+    torch.cuda.empty_cache()
+    return counts, row
+
+
+def _alternating_request_ms(preds: dict, images, turns: int = 3) -> dict:
+    """Request ms of each predictor, served in turns (a, b, b, a, ...) on
+    the same images after each answered one warm-up request: -> the
+    median of each turn's requests, by predictor."""
+    names = list(preds)
+    for pred in preds.values():
+        pred(images[0])
+    out = {n: [] for n in names}
+    order = [names[j] for i in range(turns)
+             for j in ((0, 1) if i % 2 == 0 else (1, 0))]
+    for name in order:
+        ms = []
+        for img in images:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds[name](img)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name].append(float(np.median(ms)))
+    return out
+
+
+def _switch_bf16_serving(card: str):
+    """``SylphPredictor`` under the default config (bf16-held weights)
+    against the float32-held one on the same weights. -> (counts, row)."""
+    cfg = serving_cfg()
+    f32_cfg = serving_cfg()
+    f32_cfg.TPU.EVAL_BF16_RESIDENT = False
+    # on the CPU: each predictor carries a copy of it to the card
+    model = create_runner("MetaFCOSRunner", device="cpu").build_model(cfg)
+    rng = np.random.RandomState(30)
+    images = [random_image(rng, h, w) for h, w in REQUEST_SIZES[:3]]
+    counts, row, outs = {}, {}, {}
+    for label, c in (("switches_f32_held_serve", f32_cfg),
+                     ("switches_bf16_held_serve", cfg)):
+        pred = SylphPredictor(cfg=c, model=copy.deepcopy(model))
+        dtypes = {str(t.dtype) for t in itertools.chain(
+            pred.model.parameters(), pred.model.buffers())
+            if t.is_floating_point()}
+        want = {"torch.bfloat16"} if c is cfg else {"torch.float32"}
+        if dtypes != want or pred.bank.conv.dtype != torch.float32:
+            raise AssertionError(f"{label}: weights held in {dtypes}, bank "
+                                 f"{pred.bank.conv.dtype}")
+        counts[label], line = serve_and_check(pred, label, card)
+        row[label] = {"median_request_ms": line["median_request_ms"],
+                      "request_ms": line["request_ms"],
+                      "peak_memory_gb": line["peak_memory_gb"],
+                      "weights": sorted(dtypes)}
+        outs[label] = []
+        for img in images:
+            canvas, size, _ = pred.prepare(img)
+            out = pred.dense(canvas)
+            dets = pred.decode(out, size, pred.bank.valid)
+            # dense outputs on the CPU: the next predictor's peak memory
+            # leaves them out
+            outs[label].append((type(out)(*(t.cpu() for t in out)), dets))
+            del out, dets
+        del pred
+        torch.cuda.empty_cache()
+    strides = tuple(cfg.MODEL.FCOS.FPN_STRIDES)
+    errs, matched = {}, {"matched": 0, "near_cut": 0}
+    for i, ((of, df), (ob, db)) in enumerate(zip(
+            outs["switches_f32_held_serve"],
+            outs["switches_bf16_held_serve"])):
+        e = _dense_rel_errs(ob, of)
+        errs = {n: max(errs.get(n, 0.0), v) for n, v in e.items()}
+        m = match_detections(db, df, strides, f"bf16-held request {i}")
+        matched = {k: matched[k] + m[k] for k in matched}
+    if max(errs.values()) > 0.05:
+        raise AssertionError(f"bf16-held dense outputs: {errs}")
+    row.update(dense_rel_err=errs, detections=matched)
+    # both held side by side, served in turns: the order of the two runs
+    # above is out of the comparison
+    preds = {label: SylphPredictor(cfg=c, model=copy.deepcopy(model))
+             for label, c in (("f32_held", f32_cfg), ("bf16_held", cfg))}
+    for pred in preds.values():
+        register(pred, np.random.RandomState(0), ["class_a", "class_b",
+                                                   "class_c"], 10)
+    row["turns_median_request_ms"] = _alternating_request_ms(preds, images)
+    log(f"[switches] in turns (f32, bf16, bf16, f32, ...), median request "
+        f"ms: {row['turns_median_request_ms']}")
+    del preds
+    torch.cuda.empty_cache()
+    log(f"[switches] bf16-held serving: dense outputs within "
+        f"{max(errs.values()):.4f} of the range of the float32-held ones "
+        f"({errs}); detections matched {matched['matched']}, "
+        f"{matched['near_cut']} within 0.005 of the top-100 cut; median request "
+        f"{row['switches_bf16_held_serve']['median_request_ms']:.1f} / "
+        f"{row['switches_f32_held_serve']['median_request_ms']:.1f} ms, "
+        f"peak {row['switches_bf16_held_serve']['peak_memory_gb']:.2f} / "
+        f"{row['switches_f32_held_serve']['peak_memory_gb']:.2f} GB "
+        "(bf16 / float32 held)")
+    return counts, row
+
+
+def _switch_eval_in_training(work: str) -> dict:
+    """Phase 8's episodic config, 2 steps, with an evaluation after the
+    first (EMA on) and without: equal digests; the evaluation saw bf16
+    weights and the weights were float32 before and after it."""
+    coco_tree(work)
+    seen = []
+    orig = MetaFCOSRunner._do_test_episodic
+
+    def recording(self, cfg, model):
+        seen.append(sorted({str(p.dtype) for p in model.parameters()}))
+        return orig(self, cfg, model)
+
+    digests = {}
+    MetaFCOSRunner._do_test_episodic = recording
+    try:
+        for period in (1, 0):
+            cfg = train_cfg("episodic", 2)
+            cfg.TEST.EVAL_PERIOD = period
+            cfg.DATASETS.TEST = ["coco_meta_val_novel"]
+            cfg.TEST.REPEAT_TEST = 1
+            cfg.MODEL_EMA.ENABLED = True
+            runner = MetaFCOSRunner()
+            model, state = runner.do_train(cfg)
+            dtypes = {str(p.dtype) for p in model.parameters()} | {
+                str(v.dtype) for v in state.ema.values()}
+            if dtypes != {"torch.float32"}:
+                raise AssertionError(f"after training with EVAL_PERIOD "
+                                     f"{period}: {dtypes}")
+            digests[period] = repeat_steps.state_digest(state)
+            del model, state, runner
+            torch.cuda.empty_cache()
+    finally:
+        MetaFCOSRunner._do_test_episodic = orig
+    if seen != [["torch.bfloat16"]]:
+        raise AssertionError(f"the evaluations saw weights in {seen}")
+    if digests[1] != digests[0]:
+        raise AssertionError(f"an evaluation inside training changed the "
+                             f"run: {digests}")
+    log(f"[switches] episodic training with an evaluation after step 1 "
+        f"(bf16-held inside it) equals the run without (digest "
+        f"{digests[0][:16]}; float32 weights and EMA)")
+    return {"digest": digests[0], "equal": True, "eval_weights": seen[0]}
+
+
+def _switch_dilated_dcn() -> dict:
+    """One dilation-2 ``DFConv2d`` (256 -> 256, seeded non-zero offset
+    head) on the card against the CPU, fp32 with TF32 off: phase 20's
+    limits."""
+    _exact_fp32()
+    gen = torch.Generator().manual_seed(31)
+    layer = DFConv2d(256, 256, dilation=2)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen)
+                    * (0.5 / math.sqrt(max(1, p[0].numel()))))
+    x = torch.randn(2, 256, 48, 64, generator=gen)
+    with torch.inference_mode():
+        want = layer(x)
+        got = layer.to("cuda")(x.cuda()).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3,
+                               atol=5e-3, err_msg="dilated DFConv2d")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    err = float((got - want).abs().max())
+    log(f"[switches] dilated DFConv2d (256 -> 256, dilation 2, 2x48x64): "
+        f"card within {err:.2e} of the CPU")
+    return {"max_abs_diff": err, "shape": [2, 256, 48, 64], "dilation": 2}
+
+
+def phase_switches(work: str, card: str):
+    """Phase 27; -> (counts, the ``switches`` line)."""
+    coco_tree(work)
+    lvis_tree(work)
+    line = {"switches": {}, "card": card}
+    rows = {}
+    with NMSRecorder() as rec:
+        # ---- the main path: counts are read around this block alone
+        reset_counts()
+        for name in SWITCH_STEPS:
+            rows[name] = _k_step_case(name, work)
+        k_counts = read_counts("switches_k_steps")
+        # ---- end of the main path
+        n_calls, _ = rec.check("switches_k_steps")
+    # 4 steps each way, one launch a step and micro-group
+    groups = rows["rcnn_pretrain"]["grad_accum"]
+    want = 2 * SWITCH_BATCHES * groups
+    if k_counts[0] != want or n_calls != want:
+        raise AssertionError(f"switches: {k_counts[0]} RPN NMS launches "
+                             f"({n_calls} calls), expected {want}")
+    rows["rcnn_pretrain"]["nms_launches"] = k_counts[0]
+    torch.cuda.empty_cache()
+    bt = bench_train.run(steps_per_call=2, iters=3)
+    if bt["extra"]["steps_per_call"] != 2 or not all(
+            np.isfinite(v) for v in bt["extra"]["losses"].values()):
+        raise AssertionError(f"bench_train --steps-per-call 2: {bt}")
+    rows["bench_train"] = {"steps_per_call": 2,
+                           "sec_per_step": bt["extra"]["sec_per_step"],
+                           "episodes_per_s": bt["value"]}
+    log(f"[switches] bench_train --steps-per-call 2: "
+        f"{bt['extra']['sec_per_step'] * 1e3:.1f} ms a step, "
+        f"{bt['value']} episodes/s")
+    line["switches"]["steps_per_call"] = rows
+    torch.cuda.empty_cache()
+    s2d_counts, line["switches"]["s2d_stem"] = _switch_s2d(card)
+    bf16_counts, line["switches"]["bf16_held_eval"] = \
+        _switch_bf16_serving(card)
+    line["switches"]["bf16_held_eval"]["training_with_eval"] = \
+        _switch_eval_in_training(work)
+    line["switches"]["dilated_dcn"] = _switch_dilated_dcn()
+    return {"switches_k_steps": k_counts, **s2d_counts,
+            **bf16_counts}, line
+
+
 def main() -> int:
     os.environ.pop("SYLPH_TEST_MODE", None)  # it would cut the query set
     if not torch.cuda.is_available():
@@ -3178,6 +3648,9 @@ def main() -> int:
         t0 = time.perf_counter()
         repeat_counts, repeat_line = phase_repeat(work, card)
         log(f"[time] phase 26: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        switch_counts, switch_line = phase_switches(work, card)
+        log(f"[time] phase 27: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[time] every phase, the builds included: "
@@ -3189,7 +3662,8 @@ def main() -> int:
               "rcnn_plain": plain_counts, "rcnn_train_episodic": ep_counts,
               "rcnn_train_pretrain": rpre_counts, "rcnn_train_tfa": tfa_counts,
               **roi_counts, **tfa1_counts, **dcn_counts, **dp_counts,
-              **quality_counts, **bench_counts, **repeat_counts}
+              **quality_counts, **bench_counts, **repeat_counts,
+              **switch_counts}
     by_path = {path: n for path, (n, _) in counts.items()}
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the NMS kernel: "
@@ -3220,7 +3694,7 @@ def main() -> int:
     for line in (ep_line, rpre_line, tfa_line, roi_serve, roi_train,
                  *tfa1_lines, dcn_serve, dcn_train, *dp_train_lines, dp_line,
                  registration_line, quality_line, bench_line,
-                 repeat_line):
+                 repeat_line, switch_line):
         print(json.dumps(line), flush=True)
     print(json.dumps(rcnn_line), flush=True)
     print(card, flush=True)

@@ -249,7 +249,8 @@ def get_default_cfg() -> CfgNode:
     # ------------------------------------------------------------------- TPU
     # Static-shape knobs with no reference analog. The key family keeps its
     # name so the repo's YAML configs load unchanged; the port reads the
-    # canvases, the bank capacity, APPROX_TOPK, S2D_STEM and COMPUTE_DTYPE.
+    # canvases, the bank capacity, APPROX_TOPK, S2D_STEM, COMPUTE_DTYPE,
+    # EVAL_BF16_RESIDENT and STEPS_PER_CALL.
     _C.TPU = CfgNode()
     _C.TPU.TRAIN_CANVAS = [1024, 1024]   # fixed train-time image canvas (H, W)
     _C.TPU.EVAL_CANVAS = [1024, 1344]    # fixed eval canvas (fits 800x1333 resize)
@@ -266,13 +267,13 @@ def get_default_cfg() -> CfgNode:
     _C.TPU.GRAD_ACCUM = 1                # micro-batches per train step
     _C.TPU.CLASS_BATCH = 8               # classes per registration dispatch
     _C.TPU.APPROX_TOPK = False           # the port always takes the exact top-k
-    _C.TPU.S2D_STEM = False              # not ported: the port raises on True
+    _C.TPU.S2D_STEM = False              # stem as 4x4/1 over space-to-depth
     _C.TPU.REMAT_BACKBONE = False
     _C.TPU.COMPUTE_DTYPE = "bfloat16"    # activation dtype; params stay float32
-    _C.TPU.EVAL_BF16_RESIDENT = True     # read by the JAX package only
+    _C.TPU.EVAL_BF16_RESIDENT = True     # eval weights in bf16 on the card
     _C.TPU.PRETRAIN_MICRO_BATCH = 8
     _C.TPU.MESH_DATA_AXIS = -1
-    _C.TPU.STEPS_PER_CALL = 1
+    _C.TPU.STEPS_PER_CALL = 1            # optimizer steps per train-step call
     _C.TPU.TEST_MODE = False             # SYLPH_TEST_MODE analog (shrink everything)
 
     return _C

@@ -13,8 +13,8 @@ centerness, so decode hands NMS its full K = 4320 candidates.
 ``dryrun_multichip(n)`` runs the composed training configuration of
 ``__graft_entry__.dryrun_multichip`` (2 shots, 1 query, GRAD_ACCUM 2, EMA,
 the backbone frozen) over ``n`` gloo ranks on the CPU, each a process of
-its own, for two steps; every metric must be finite and the step count 2.
-``TPU.STEPS_PER_CALL`` stays 1: the port runs one optimizer step a call.
+its own, for two steps in one call (``TPU.STEPS_PER_CALL`` 2, as the JAX
+dry run scans them); every metric must be finite and the step count 2.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ from .runner import resolve_device
 from .tools.bench_common import (SIZES_OF_INTEREST, STRIDES, QueryPath,
                                  flagship_model)
 from .train.optimizer import build_optimizer
-from .train.steps import make_episodic_train_step
+from .train.steps import (make_episodic_train_step, metric_rows,
+                          stack_batches)
 from .train.train_state import TrainState
 
 ENTRY_CANVAS = (512, 512)
@@ -113,12 +114,11 @@ def _dryrun_rank(rank: int, n_ranks: int, work: str) -> None:
                                    list(SIZES_OF_INTEREST))
         step = make_episodic_train_step(model, grid, FCOSLossCfg(),
                                         num_shots=DRYRUN_SHOT,
+                                        steps_per_call=DRYRUN_STEPS,
                                         grad_accum=DRYRUN_ACCUM, group=group)
         batch = shard_batch(dryrun_batch(n_ranks), group)
-        metrics = []
-        for _ in range(DRYRUN_STEPS):
-            state, m = step(state, batch)
-            metrics.append({k: float(v) for k, v in m.items()})
+        state, m = step(state, stack_batches([batch] * DRYRUN_STEPS))
+        metrics = metric_rows(m, DRYRUN_STEPS)
         bad = {k: v for m in metrics for k, v in m.items()
                if not np.isfinite(v)}
         if bad or state.step != DRYRUN_STEPS:

@@ -203,19 +203,11 @@ class MetaFasterRCNNRunner(MetaFCOSRunner):
             nms_thresh=cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
             max_dets=cfg.TEST.DETECTIONS_PER_IMAGE, device=self.device)
 
-    def do_test(self, cfg, model, step: int = 0) -> Dict[str, Dict]:
-        """The two-phase meta-test with the two-stage query path on every
-        ``DATASETS.TEST`` entry (REPEAT_TEST aggregated); the plain base
-        classifier evaluation when the config is not episodic. Scalars go
-        to ``{OUTPUT_DIR}/tb`` and raw codes to
-        ``{OUTPUT_DIR}/class_codes/{dataset}/`` when OUTPUT_DIR is set; the
-        drivers stay in ``self.drivers``."""
+    def _do_test_episodic(self, cfg, model) -> Dict[str, Dict]:
+        """The two-phase meta-test of ``do_test`` with the two-stage query
+        path on every ``DATASETS.TEST`` entry (REPEAT_TEST aggregated)."""
         from .evaluation.meta_eval import MetaTestDriver
 
-        if not cfg.MODEL.META_LEARN.EPISODIC_LEARNING:
-            results = self._do_test_plain_rcnn(cfg, model)
-            self._write_tb(results, cfg, step)
-            return results
         grid = eval_anchor_grid(cfg)
         results = {}
         for name in cfg.DATASETS.TEST:
@@ -233,7 +225,6 @@ class MetaFasterRCNNRunner(MetaFCOSRunner):
                 mesh=self.group)
             self.drivers[name] = driver
             results[name] = driver.run_repeated(cfg.TEST.REPEAT_TEST)
-        self._write_tb(results, cfg, step)
         return results
 
     def make_plain_infer(self, cfg, model, grid):
@@ -253,9 +244,10 @@ class MetaFasterRCNNRunner(MetaFCOSRunner):
 
         return infer
 
-    def _do_test_plain_rcnn(self, cfg, model) -> Dict[str, Dict]:
-        """Base-classifier two-stage evaluation (pretraining, TFA-RCNN):
-        the shared eval loop over ``forward_base_instances``."""
+    def _do_test_plain(self, cfg, model) -> Dict[str, Dict]:
+        """The plain evaluation of ``do_test``: the base classifier
+        (pretraining, TFA-RCNN) through the shared eval loop over
+        ``forward_base_instances``."""
         infer = self.make_plain_infer(cfg, model, eval_anchor_grid(cfg))
         results = {}
         for name in cfg.DATASETS.TEST:

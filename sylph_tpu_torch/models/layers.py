@@ -1,8 +1,10 @@
 """Small building blocks shared by the port's models.
 
 Parameters stay float32; activations run in the model's compute dtype.
-``Conv2d`` casts its weights to the input's dtype on the fly and
-``GroupNorm`` normalizes in float32 (flax ``GroupNorm(dtype=float32)``), so
+``Conv2d``, ``Linear`` and ``LayerNorm`` cast their weights to the input's
+dtype on the fly (so weights held in bfloat16 for evaluation,
+``utils/precision.py``, are widened where a layer runs in float32, as flax
+promotes them) and ``GroupNorm`` normalizes in float32 (flax ``GroupNorm(dtype=float32)``), so
 one float32 state dict serves both float32 and bfloat16 runs. On bfloat16
 inputs ``GroupNorm`` rounds its scale and bias to bfloat16 before using them
 in float32, as the JAX package's bf16-resident parameters are used.
@@ -16,18 +18,37 @@ import torch.nn.functional as F
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with torch-style symmetric padding ``k // 2`` that runs
-    in the dtype of its input."""
+    """``nn.Conv2d`` with torch-style symmetric padding ``dilation * (k - 1)
+    // 2`` (``k // 2`` undilated) that runs in the dtype of its input."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, bias: bool = True):
+                 stride: int = 1, bias: bool = True, dilation: int = 1):
         super().__init__(in_channels, out_channels, kernel_size,
-                         stride=stride, padding=kernel_size // 2, bias=bias)
+                         stride=stride,
+                         padding=dilation * (kernel_size - 1) // 2,
+                         dilation=dilation, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding)
+                        self.padding, self.dilation)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that runs in the dtype of its input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that runs in the dtype of its input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape,
+                            self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.eps)
 
 
 class GroupNorm(nn.GroupNorm):

@@ -66,7 +66,7 @@ from ..ops.roi_align import multilevel_roi_align
 from ..structures import Detections, GTBoxes, pairwise_iou
 from .code_generator import CodeGeneratorHead
 from .fpn import FPN
-from .layers import Conv2d, flatten_nchw
+from .layers import Conv2d, Linear, flatten_nchw
 from .resnet import ResNet, resnet_feature_channels
 
 ROI_DELTA_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
@@ -294,7 +294,7 @@ class ROIBoxHead(nn.Module):
         self.cosine_sim = cosine_sim and not conditional
         self.cosine_scale = cosine_scale
         for i in range(num_fc):
-            self.add_module(f"fc{i + 1}", nn.Linear(
+            self.add_module(f"fc{i + 1}", Linear(
                 in_features if i == 0 else fc_dim, fc_dim))
         if conditional:
             self.bg_weight = nn.Parameter(torch.zeros(fc_dim))
@@ -305,8 +305,8 @@ class ROIBoxHead(nn.Module):
             if cosine_scale == -1.0:
                 self.cosine_scale_param = nn.Parameter(torch.tensor(20.0))
         else:
-            self.cls_score = nn.Linear(fc_dim, num_classes + 1)
-        self.bbox_pred = nn.Linear(fc_dim, 4)
+            self.cls_score = Linear(fc_dim, num_classes + 1)
+        self.bbox_pred = Linear(fc_dim, 4)
 
     def features(self, roi_feats: torch.Tensor) -> torch.Tensor:
         """(N, C, P, P) pooled features -> (N, fc_dim), flattened in the
@@ -328,14 +328,14 @@ class ROIBoxHead(nn.Module):
             w = class_code["cls_conv"].reshape(-1, self.fc_dim)   # (E, D)
             bias = class_code["cls_bias"].reshape(-1)
             cond = x @ w.to(x.dtype).t() + bias
-            bg = (x @ self.bg_weight + self.bg_bias)[:, None]
+            bg = (x @ self.bg_weight.to(x.dtype) + self.bg_bias)[:, None]
             scores = torch.cat([cond, bg], dim=-1)
         elif self.cosine_sim:
             scale = (self.cosine_scale_param if self.cosine_scale == -1.0
                      else self.cosine_scale)
             xn = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True)
                       + 1e-5)
-            w = self.cosine_weight
+            w = self.cosine_weight.to(x.dtype)
             wn = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True)
                       + 1e-5)
             scores = scale * (xn @ wn.t())

@@ -4,9 +4,11 @@ sylph_tpu/models/resnet.py).
   * caffe bottlenecks: the spatial stride sits in the 1x1 ``conv1``;
   * FrozenBatchNorm: y = x * scale + bias with (scale, bias) as buffers;
   * stem: 7x7/2 conv + frozen BN + relu + 3x3/2 max pool (pads with -inf);
-  * symmetric torch padding k // 2 on every conv.
-
-The JAX package's space-to-depth stem is a TPU workaround and is not ported.
+    with ``s2d_stem`` (TPU.S2D_STEM) the conv is its exact rewrite, a 4x4/1
+    conv over 2x2 space-to-depth input (``SpaceToDepthStem``), whose weight
+    (O, 4C, 4, 4) ``stem_kernel_to_s2d`` and ``stem_kernel_from_s2d`` carry
+    to and from the 7x7 one;
+  * symmetric torch padding k // 2 on every other conv.
 """
 
 from __future__ import annotations
@@ -40,6 +42,74 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (x * self.scale.to(x.dtype)[None, :, None, None]
                 + self.bias.to(x.dtype)[None, :, None, None])
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(B, C, H, W) -> (B, b*b*C, H/b, W/b), channels in (row phase, column
+    phase, channel) order, as the JAX package's NHWC ``space_to_depth``."""
+    b, c, h, w = x.shape
+    if h % block or w % block:
+        raise ValueError(f"space_to_depth: a {h}x{w} canvas is not a "
+                         f"multiple of {block} on each side (TPU.S2D_STEM "
+                         "needs even canvases)")
+    x = x.reshape(b, c, h // block, block, w // block, block)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(b, block * block * c,
+                                               h // block, w // block)
+
+
+def _s2d_taps():
+    """(d, p, e, q) -> (u, v): the 4x4 tap (d, e) at row phase p and column
+    phase q reads the 7x7 tap (u, v); taps off the 7x7 support are left
+    out (the scatter is a pure reindexing, injective on that support)."""
+    for d in range(4):
+        for p in range(2):
+            u = 2 * (d - 2) + p + 3
+            for e in range(4):
+                for q in range(2):
+                    v = 2 * (e - 2) + q + 3
+                    if 0 <= u < 7 and 0 <= v < 7:
+                        yield d, p, e, q, u, v
+
+
+def stem_kernel_to_s2d(w7: torch.Tensor) -> torch.Tensor:
+    """A (O, C, 7, 7) stride-2 stem kernel scattered into the equivalent
+    (O, 4C, 4, 4) stride-1 kernel over 2x2 space-to-depth input (JAX's
+    ``stem_kernel_to_s2d`` in OIHW)."""
+    o, c, kh, kw = w7.shape
+    if (kh, kw) != (7, 7):
+        raise ValueError(f"stem_kernel_to_s2d: a {tuple(w7.shape)} kernel")
+    w4 = w7.new_zeros((o, 4 * c, 4, 4))
+    for d, p, e, q, u, v in _s2d_taps():
+        ph = (p * 2 + q) * c
+        w4[:, ph:ph + c, d, e] = w7[:, :, u, v]
+    return w4
+
+
+def stem_kernel_from_s2d(w4: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``stem_kernel_to_s2d``: (O, 4C, 4, 4) -> (O, C, 7, 7);
+    the round trip is exact."""
+    o, c4, kh, kw = w4.shape
+    if (kh, kw) != (4, 4) or c4 % 4:
+        raise ValueError(f"stem_kernel_from_s2d: a {tuple(w4.shape)} kernel")
+    c = c4 // 4
+    w7 = w4.new_zeros((o, c, 7, 7))
+    for d, p, e, q, u, v in _s2d_taps():
+        ph = (p * 2 + q) * c
+        w7[:, :, u, v] = w4[:, ph:ph + c, d, e]
+    return w7
+
+
+class SpaceToDepthStem(Conv2d):
+    """The 7x7/2 stem conv as a 4x4/1 conv over 2x2 space-to-depth input,
+    padded (2, 1) blocks on each axis as in the JAX package; ``weight`` is
+    (O, 4C, 4, 4). Needs even canvas sides."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(4 * in_channels, out_channels, 4, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(space_to_depth(x), (2, 1, 2, 1))
+        return F.conv2d(x, self.weight.to(x.dtype))
 
 
 class Bottleneck(nn.Module):
@@ -83,13 +153,10 @@ class ResNet(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  s2d_stem: bool = False):
         super().__init__()
-        if s2d_stem:
-            raise NotImplementedError(
-                "the space-to-depth stem is a TPU workaround; the port runs "
-                "the 7x7/2 stem (set TPU.S2D_STEM false)")
         self.out_features = tuple(out_features)
         self.compute_dtype = compute_dtype
-        self.stem_conv1 = Conv2d(3, stem_channels, 7, 2, bias=False)
+        self.stem_conv1 = (SpaceToDepthStem(3, stem_channels) if s2d_stem
+                           else Conv2d(3, stem_channels, 7, 2, bias=False))
         self.stem_bn1 = FrozenBatchNorm(stem_channels)
         self.stages = []  # (stage name, its block names)
         in_channels = stem_channels

@@ -44,7 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.roi_align import multilevel_roi_align
-from .layers import Conv2d, GroupNorm
+from .layers import Conv2d, GroupNorm, LayerNorm, Linear
 
 
 def _dropout(x: torch.Tensor, p: float, gen: Optional[torch.Generator],
@@ -85,7 +85,7 @@ class MSCAM(nn.Module):
         return x * torch.sigmoid(local + glob)
 
 
-class _HeadsProjection(nn.Linear):
+class _HeadsProjection(Linear):
     """flax ``DenseGeneral(features=(heads, head_dim))``: ``weight``
     (heads * head_dim, d) and a (heads, head_dim) ``bias``; returns
     (..., heads, head_dim)."""
@@ -96,13 +96,14 @@ class _HeadsProjection(nn.Linear):
         self.bias = nn.Parameter(torch.empty(heads, d // heads))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight, self.bias.reshape(-1))
+        y = F.linear(x, self.weight.to(x.dtype),
+                     self.bias.reshape(-1).to(x.dtype))
         return y.reshape(*x.shape[:-1], self.heads, -1)
 
 
 class SelfAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention(x, x)`` with ``qkv_features`` =
-    d: ``query``, ``key``, ``value`` and ``out`` (an ``nn.Linear`` from the
+    d: ``query``, ``key``, ``value`` and ``out`` (a ``Linear`` from the
     concatenated heads)."""
 
     def __init__(self, d: int, heads: int, dropout: float):
@@ -112,7 +113,7 @@ class SelfAttention(nn.Module):
         self.query = _HeadsProjection(d, heads)
         self.key = _HeadsProjection(d, heads)
         self.value = _HeadsProjection(d, heads)
-        self.out = nn.Linear(d, d)
+        self.out = Linear(d, d)
 
     def forward(self, x: torch.Tensor,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -132,10 +133,10 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.self_attn = SelfAttention(d, heads, dropout)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
-        self.ff1 = nn.Linear(d, ff_dim)
-        self.ff2 = nn.Linear(ff_dim, d)
-        self.norm2 = nn.LayerNorm(d, eps=1e-5)
+        self.norm1 = LayerNorm(d, eps=1e-5)
+        self.ff1 = Linear(d, ff_dim)
+        self.ff2 = Linear(ff_dim, d)
+        self.norm2 = LayerNorm(d, eps=1e-5)
 
     def forward(self, x: torch.Tensor,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -184,7 +185,7 @@ class ROIEncoder(nn.Module):
         dim = c * pooler_resolution ** 2
         self.tok_num_fc = tokenizer_num_fc
         for i in range(tokenizer_num_fc):
-            self.add_module(f"tok_fc{i}", nn.Linear(dim, tokenizer_fc_dim))
+            self.add_module(f"tok_fc{i}", Linear(dim, tokenizer_fc_dim))
             dim = tokenizer_fc_dim
         self.num_layers = transformer_layers
         for i in range(transformer_layers):
@@ -196,7 +197,7 @@ class ROIEncoder(nn.Module):
             d = tokenizer_fc_dim
             for i in range(head_num_fc):
                 last = i == head_num_fc - 1
-                self.add_module(f"{prefix}_fc{i}", nn.Linear(
+                self.add_module(f"{prefix}_fc{i}", Linear(
                     d, out_dim if last else head_fc_dim))
                 d = head_fc_dim
 

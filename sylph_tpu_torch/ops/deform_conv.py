@@ -87,24 +87,23 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor,
 
 
 class DFConv2d(nn.Module):
-    """The deformable tower conv: ``offset`` (a conv predicting 2K offsets
-    and, modulated, K mask logits; zero-initialized, so the layer starts as
-    a plain conv scaled by sigmoid(0) = 0.5), then ``deform_conv2d`` with
-    ``weight`` (Cout, Cin, k, k) and ``bias``. It runs in its input's dtype;
+    """The deformable tower conv: ``offset`` (a conv, dilated as the layer
+    is, predicting 2K offsets and, modulated, K mask logits; zero-initialized,
+    so the layer starts as a plain conv scaled by sigmoid(0) = 0.5), then
+    ``deform_conv2d`` with ``weight`` (Cout, Cin, k, k), ``bias`` and
+    ``dilation``. It runs in its input's dtype;
     the offsets and the mask are float32."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, dilation: int = 1,
                  with_modulated_dcn: bool = True, bias: bool = True):
         super().__init__()
-        if dilation != 1:
-            raise NotImplementedError("DFConv2d with dilation > 1")
         self.k = kernel_size * kernel_size
         self.dilation = dilation
         self.with_modulated_dcn = with_modulated_dcn
         self.offset = Conv2d(in_channels,
                              self.k * (3 if with_modulated_dcn else 2),
-                             kernel_size)
+                             kernel_size, dilation=dilation)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None

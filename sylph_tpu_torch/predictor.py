@@ -20,7 +20,9 @@ sets MODEL.WEIGHTS, which may name a flat ``.npz`` of flax params (the JAX
 package's layout), one of the port's checkpoints or a detectron2
 ``.pth``/``.pkl``. The code bank is preallocated on the device with
 ``TPU.MAX_CLASSES`` rows and a ``valid`` mask; registering a class writes one
-row in place and rebuilds nothing. The ROIEncoder's codes are final and are
+row in place and rebuilds nothing. On the card the model's weights are held
+in bfloat16 under ``TPU.EVAL_BF16_RESIDENT`` (the default), a model passed
+as ``model=`` included; the bank stays float32. The ROIEncoder's codes are final and are
 never normalized.
 """
 
@@ -39,6 +41,7 @@ from .ops.image_ops import resize_shortest_edge_device
 from .ops.locations import build_location_grid
 from .runner import _decode_cfg, _mapper, create_runner, resolve_device
 from .structures import Detections
+from .utils.precision import eval_resident_params
 
 
 class ClassCodeBank:
@@ -98,7 +101,9 @@ class SylphPredictor:
         self.cfg = cfg
         if model is None:
             model = runner.build_model(cfg)
-        self.model = model.to(self.device).eval()
+        # serving only evaluates: TPU.EVAL_BF16_RESIDENT holds the weights
+        # in bfloat16 on the card (utils/precision.py); the bank stays float32
+        self.model = eval_resident_params(cfg, model.to(self.device).eval())
 
         self.eval_canvas = tuple(cfg.TPU.EVAL_CANVAS)
         grid = build_location_grid(

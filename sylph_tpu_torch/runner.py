@@ -64,11 +64,13 @@ from .parallel.mesh import DataGroup
 from .train.checkpoint import (CheckpointManager, filter_params_by_module,
                                load_params_any, merge_state_dict)
 from .train.optimizer import build_freeze_mask, build_optimizer
-from .train.steps import make_episodic_train_step, make_pretrain_train_step
+from .train.steps import (make_episodic_train_step, make_pretrain_train_step,
+                          metric_rows, stack_batches)
 from .train.train_state import TrainState
 from .utils.convert_d2 import (convert_detectron2_checkpoint,
                                load_torch_state_dict)
 from .utils.convert_weights import state_dict_from_jax
+from .utils.precision import eval_resident
 from .utils.events import AbnormalLossChecker, MetricsWriter
 from .utils.tb_writer import write_eval_results_tb
 
@@ -530,14 +532,19 @@ class MetaFCOSRunner:
 
     def _train_loop(self, cfg, state, step_fn, batches, schedule, ckpt,
                     eval_fn=None):
-        """Host loop: one step per batch, metrics, the abnormal-loss check,
-        checkpoints every SOLVER.CHECKPOINT_PERIOD and at the end, and the
-        TEST.EVAL_PERIOD hook; metrics and checkpoints on rank 0 alone.
-        ``self.loop_times`` keeps each iteration's data wait and step wait
-        (printed with SYLPH_TIME_LOOP=1). SYLPH_MEMORY_REPORT=1 prints the
-        first step's peak memory once."""
+        """Host loop: one call per TPU.STEPS_PER_CALL = K batches (stacked
+        on a leading axis when K > 1), then per step its metrics row and
+        the abnormal-loss check; checkpoints when a call crosses a multiple
+        of SOLVER.CHECKPOINT_PERIOD and at the end, and the TEST.EVAL_PERIOD
+        hook likewise; metrics and checkpoints on rank 0 alone. A K-step
+        call that would pass SOLVER.MAX_ITER is not made: the loop saves
+        and stops there. ``self.loop_times`` keeps each call's data wait
+        and step wait (printed with SYLPH_TIME_LOOP=1),
+        ``self.train_metrics`` each step's losses. SYLPH_MEMORY_REPORT=1
+        prints the first call's peak memory once."""
         max_iter = cfg.SOLVER.MAX_ITER
         eval_period = cfg.TEST.EVAL_PERIOD
+        k = max(1, cfg.TPU.STEPS_PER_CALL)
         writer = MetricsWriter(cfg.OUTPUT_DIR if self.is_main else None)
         checker = AbnormalLossChecker()
         mem_report = bool(os.environ.get("SYLPH_MEMORY_REPORT"))
@@ -547,31 +554,40 @@ class MetaFCOSRunner:
         it = state.step
         try:
             while it < max_iter:
+                if it + k > max_iter:
+                    print(f"[train] stopping at iter {it}: MAX_ITER "
+                          f"{max_iter} is not a multiple of "
+                          f"TPU.STEPS_PER_CALL={k}")
+                    if ckpt is not None and self.is_main:
+                        ckpt.save(it, state)
+                    break
                 t_loop = time.perf_counter()
-                batch = next(batches)
+                batch = (next(batches) if k == 1 else
+                         stack_batches([next(batches) for _ in range(k)]))
                 t_data = time.perf_counter()
                 if mem_report and self.device.type == "cuda":
                     torch.cuda.reset_peak_memory_stats(self.device)
                 state, metrics = step_fn(state, batch)
-                m = {k: float(v) for k, v in metrics.items()}
+                rows = metric_rows(metrics, k)
                 t_step = time.perf_counter()
                 if mem_report:
                     mem_report = _print_memory_report(self.device)
                 self.loop_times.append((t_data - t_loop, t_step - t_data))
-                self.train_metrics.append(m)
                 if time_loop:
                     print(f"[loop-timing] data_wait {t_data - t_loop:.2f}s  "
                           f"step_wait {t_step - t_data:.2f}s")
-                it += 1
-                for key, msg in checker.check(m).items():
-                    print(f"[abnormal-loss] {key}: {msg}")
-                writer.write(it, m, lr=schedule(it))
+                for m in rows:
+                    it += 1
+                    self.train_metrics.append(m)
+                    for key, msg in checker.check(m).items():
+                        print(f"[abnormal-loss] {key}: {msg}")
+                    writer.write(it, m, lr=schedule(it))
                 if ckpt is not None and self.is_main and (
-                        it % cfg.SOLVER.CHECKPOINT_PERIOD == 0
+                        it % cfg.SOLVER.CHECKPOINT_PERIOD < k
                         or it >= max_iter):
                     ckpt.save(it, state)
                 if (eval_fn is not None and eval_period > 0
-                        and it % eval_period == 0 and it < max_iter):
+                        and it % eval_period < k and it < max_iter):
                     eval_fn(state, it)
         finally:
             writer.close()
@@ -644,6 +660,7 @@ class MetaFCOSRunner:
             ds, _mapper(cfg), episodes_per_batch=cfg.SOLVER.IMS_PER_BATCH,
             seed=max(cfg.SEED, 0), sampler=cfg.DATALOADER.SAMPLER_TRAIN,
             repeat_thresh=cfg.DATALOADER.REPEAT_THRESHOLD,
+            retain=max(2, cfg.TPU.STEPS_PER_CALL),
             device=self.device, **self._loader_ranks())
 
     def _dataset(self, cfg, name: str, **kwargs):
@@ -677,6 +694,7 @@ class MetaFCOSRunner:
             records, _mapper(cfg), batch_size=cfg.SOLVER.IMS_PER_BATCH,
             seed=max(cfg.SEED, 0), sampler=cfg.DATALOADER.SAMPLER_TRAIN,
             repeat_thresh=cfg.DATALOADER.REPEAT_THRESHOLD,
+            retain=max(2, cfg.TPU.STEPS_PER_CALL),
             device=self.device, **self._loader_ranks())
 
     def get_evaluator(self, cfg, dataset_name: str, query_records, metadata):
@@ -725,18 +743,26 @@ class MetaFCOSRunner:
     def do_test(self, cfg, model, step: int = 0) -> Dict[str, Dict]:
         """The two-phase meta-test on every ``DATASETS.TEST`` entry, with
         REPEAT_TEST aggregation (reference :451-672); the plain base
-        detector evaluation when the config is not episodic. Scalars go to
+        detector evaluation when the config is not episodic. On the card
+        the weights are held in bfloat16 for the evaluation under
+        TPU.EVAL_BF16_RESIDENT and get their float32 storage back after
+        (``utils/precision.py::eval_resident``). Scalars go to
         ``{OUTPUT_DIR}/tb`` and raw codes to
         ``{OUTPUT_DIR}/class_codes/{dataset}/`` when OUTPUT_DIR is set.
         The drivers stay in ``self.drivers`` (bank and phase times). With a
         group of several ranks, registration is sharded over them and every
         rank scores the whole query set; rank 0 writes the files."""
+        with eval_resident(cfg, model):
+            results = (self._do_test_episodic(cfg, model)
+                       if cfg.MODEL.META_LEARN.EPISODIC_LEARNING
+                       else self._do_test_plain(cfg, model))
+        self._write_tb(results, cfg, step)
+        return results
+
+    def _do_test_episodic(self, cfg, model) -> Dict[str, Dict]:
+        """The two-phase meta-test of ``do_test``."""
         from .evaluation.meta_eval import MetaTestDriver
 
-        if not cfg.MODEL.META_LEARN.EPISODIC_LEARNING:
-            results = self._do_test_plain(cfg, model)
-            self._write_tb(results, cfg, step)
-            return results
         results = {}
         grid = _eval_grid(cfg)
         for name in cfg.DATASETS.TEST:
@@ -760,7 +786,6 @@ class MetaFCOSRunner:
                 mesh=self.group)
             self.drivers[name] = driver
             results[name] = driver.run_repeated(cfg.TEST.REPEAT_TEST)
-        self._write_tb(results, cfg, step)
         return results
 
     def _write_tb(self, results, cfg, step: int) -> None:

@@ -62,7 +62,7 @@ def build_query_path(device, depth: int = 50,
     bank = make_bank(model, torch.from_numpy(sup).to(dev),
                      torch.from_numpy(boxes).to(dev))
     if dev.type == "cuda":
-        store_params(model, torch.bfloat16)
+        store_params(model)
     return model, bank, QueryPath(model, bank, canvas, batch)
 
 

@@ -45,7 +45,7 @@ def run(device="cuda", variant: str = "baseline", batch: int = 16,
     dev = resolve_device(device)
     model = flagship_model(dev, depth=depth)
     if variant == "bf16_params":
-        store_params(model, torch.bfloat16)
+        store_params(model)
     images = query_images(batch, canvas, dev)
     path = QueryPath(model, random_bank(n_classes, dev), canvas, batch)
     sec = mean_call_s(path, (images,), dev, iters)

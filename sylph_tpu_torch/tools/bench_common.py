@@ -23,6 +23,7 @@ from ..models.meta_arch import MetaOneStageDetector
 from ..ops.decode import DecodeCfg, decode_proposals
 from ..ops.locations import build_location_grid
 from ..runner import init_train_weights, resolve_device
+from ..utils.precision import bf16_resident
 
 CANVAS = (768, 1280)  # fits the 800x1333 shortest-edge eval resize, /128
 STRIDES = (8, 16, 32, 64, 128)
@@ -50,11 +51,10 @@ def flagship_model(device, depth: int = 50, num_classes: int = 60,
     return model.eval()
 
 
-def store_params(model: torch.nn.Module, dtype: torch.dtype
-                 ) -> torch.nn.Module:
-    """Every floating parameter and buffer held in ``dtype``: the JAX
-    package's ``bf16_resident`` for ``torch.bfloat16``."""
-    return model.to(dtype)
+def store_params(model: torch.nn.Module) -> torch.nn.Module:
+    """Every float32 parameter and buffer held in bfloat16 (``utils/
+    precision.py::bf16_resident``, the JAX package's residency policy)."""
+    return bf16_resident(model)
 
 
 def query_images(batch: int, canvas: Sequence[int], device,

@@ -33,7 +33,7 @@ def run(device="cuda", batch: int = 16, iters: int = 20, f32: bool = False,
     dev = resolve_device(device)
     model = flagship_model(dev, depth=depth, code_generator_name="none")
     if not f32:
-        store_params(model, torch.bfloat16)
+        store_params(model)
     images = query_images(batch, canvas, dev)
     path = QueryPath(model, random_bank(n_classes, dev), canvas, batch)
 

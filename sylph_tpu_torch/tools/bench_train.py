@@ -2,7 +2,8 @@
 ``tools/bench_train.py``).
 
     python3 -m sylph_tpu_torch.tools.bench_train [--episodes 8] [--shot 5]
-        [--query 1] [--canvas 512] [--iters 10] [--device cuda]
+        [--query 1] [--canvas 512] [--iters 10] [--steps-per-call 1]
+        [--device cuda]
 
 Times the full episodic training step (``train/steps.py::
 make_episodic_train_step``: the frozen backbone and FPN on the supports and
@@ -13,8 +14,8 @@ synchronisations. The model is the flagship R-50 in bf16 from the flax
 initializers' distributions, with the backbone, the episodic code path and
 the bbox branch frozen as the JAX driver freezes them. Prints
 ``episodic_train_episodes_per_sec`` with the JAX driver's ``extra`` keys.
-``--steps-per-call`` above 1 raises: ``TPU.STEPS_PER_CALL`` is a TPU
-dispatch workaround, and the port runs one optimizer step a call.
+``--steps-per-call K`` (``TPU.STEPS_PER_CALL``) stacks the batch K times and
+times ``--iters`` calls of K steps each; the rate is per step.
 """
 
 from __future__ import annotations
@@ -30,16 +31,11 @@ from ..ops.fcos_losses import FCOSLossCfg
 from ..ops.locations import build_location_grid
 from ..runner import resolve_device
 from ..train.optimizer import build_optimizer
-from ..train.steps import make_episodic_train_step
+from ..train.steps import (make_episodic_train_step, metric_rows,
+                           stack_batches)
 from ..train.train_state import TrainState
 from .bench_common import (SIZES_OF_INTEREST, STRIDES, device_name,
                            flagship_model, mean_call_s)
-
-STEPS_PER_CALL_RULE = (
-    "--steps-per-call {} > 1: TPU.STEPS_PER_CALL scans several optimizer "
-    "steps in one TPU dispatch, one of the workarounds for the TPU that need "
-    "no port (ROADMAP ground rules); the port runs one step a call")
-
 
 def episodic_batch(episodes: int, shot: int, query: int, canvas: int,
                    device) -> Dict[str, torch.Tensor]:
@@ -69,8 +65,7 @@ def episodic_batch(episodes: int, shot: int, query: int, canvas: int,
 def run(device="cuda", episodes: int = 8, shot: int = 5, query: int = 1,
         canvas: int = 512, iters: int = 10, steps_per_call: int = 1,
         depth: int = 50) -> Dict:
-    if steps_per_call > 1:
-        raise NotImplementedError(STEPS_PER_CALL_RULE.format(steps_per_call))
+    k = max(1, steps_per_call)
     dev = resolve_device(device)
     model = flagship_model(dev, depth=depth, stop_backbone_grad=True)
     tx, _ = build_optimizer(
@@ -81,14 +76,16 @@ def run(device="cuda", episodes: int = 8, shot: int = 5, query: int = 1,
     grid = build_location_grid((canvas, canvas), STRIDES,
                                list(SIZES_OF_INTEREST))
     step = make_episodic_train_step(model, grid, FCOSLossCfg(),
-                                    num_shots=shot)
+                                    num_shots=shot, steps_per_call=k)
     batch = episodic_batch(episodes, shot, query, canvas, dev)
+    if k > 1:
+        batch = stack_batches([batch] * k)
     carry = {"state": state}
 
-    def one_step():
+    def one_call():
         carry["state"], carry["metrics"] = step(carry["state"], batch)
-    dt = mean_call_s(one_step, (), dev, iters, warmup=1)
-    metrics = carry["metrics"]
+    dt = mean_call_s(one_call, (), dev, iters, warmup=1) / k
+    last = metric_rows(carry["metrics"], k)[-1]
     e = episodes
     return {
         "metric": "episodic_train_episodes_per_sec",
@@ -98,10 +95,10 @@ def run(device="cuda", episodes: int = 8, shot: int = 5, query: int = 1,
             "images_per_step": e * (shot + query),
             "images_per_sec": round(e * (shot + query) / dt, 1),
             "canvas": canvas, "shot": shot,
-            "steps_per_call": steps_per_call,
+            "steps_per_call": k,
             "devices": 1,
             "device": device_name(dev),
-            "losses": {k: float(v) for k, v in metrics.items()},
+            "losses": last,
         },
     }
 
@@ -114,7 +111,7 @@ def main(argv=None) -> Dict:
     p.add_argument("--canvas", type=int, default=512)
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--steps-per-call", type=int, default=1,
-                   help="must be 1 in the port")
+                   help="K optimizer steps a call (TPU.STEPS_PER_CALL)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     line = run(args.device, args.episodes, args.shot, args.query,

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..models.resnet import stem_kernel_from_s2d, stem_kernel_to_s2d
+
 _CKPT = re.compile(r"^step_(\d{8})\.pt$")
 
 
@@ -137,15 +139,19 @@ def filter_params_by_module(params: Mapping, prefixes: List[str]) -> Dict:
 def merge_state_dict(model: nn.Module, loaded: Mapping[str, torch.Tensor]
                      ) -> nn.Module:
     """Overlay ``loaded`` onto the model's state: keys the model lacks are
-    ignored, shape-mismatched ones skipped with a warning (the TFA flow
-    loads a C_base-class head into a NUM_CLASSES one); when more leaves are
-    skipped than merged the checkpoint is refused as the wrong one."""
+    ignored; a 7x7 stride-2 stem kernel loads into a space-to-depth stem
+    (TPU.S2D_STEM) and back, converted exactly (``stem_kernel_to_s2d``,
+    ``stem_kernel_from_s2d``); other shape-mismatched leaves are skipped
+    with a warning (the TFA flow loads a C_base-class head into a
+    NUM_CLASSES one); when more leaves are skipped than merged the
+    checkpoint is refused as the wrong one."""
     log = logging.getLogger(__name__)
     own = model.state_dict()
     skipped, merged = [], 0
     for k, v in loaded.items():
         if k not in own:
             continue
+        v = _stem_to(torch.as_tensor(v), tuple(own[k].shape))
         if tuple(own[k].shape) != tuple(v.shape):
             skipped.append((k, tuple(v.shape), tuple(own[k].shape)))
             log.warning("merge_state_dict: skipping %s: checkpoint shape %s "
@@ -160,6 +166,20 @@ def merge_state_dict(model: nn.Module, loaded: Mapping[str, torch.Tensor]
             "the wrong checkpoint for this architecture, refusing to "
             "continue on mostly-random weights")
     return model
+
+
+def _stem_to(v: torch.Tensor, shape) -> torch.Tensor:
+    """``v`` converted between the 7x7 stem kernel (O, C, 7, 7) and the
+    space-to-depth one (O, 4C, 4, 4) when ``shape`` is the other of the
+    pair; otherwise ``v`` as it is."""
+    s = tuple(v.shape)
+    if len(s) != 4 or len(shape) != 4:
+        return v
+    if s[2:] == (7, 7) and shape == (s[0], 4 * s[1], 4, 4):
+        return stem_kernel_to_s2d(v)
+    if shape[2:] == (7, 7) and s == (shape[0], 4 * shape[1], 4, 4):
+        return stem_kernel_from_s2d(v)
+    return v
 
 
 # ---------------------------------------------------------------- code banks

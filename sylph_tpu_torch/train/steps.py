@@ -38,9 +38,11 @@ seeded from (seed, iteration, global group) for the ROIEncoder's dropout,
 so a resumed run draws what an uninterrupted one does, and W ranks draw
 what one process draws.
 
-``TPU.STEPS_PER_CALL`` (K optimizer steps in one TPU dispatch) changes no
-numbers and exists for the TPU's dispatch cost; the port runs one step per
-call and raises on larger values.
+``steps_per_call = K`` above 1 (``TPU.STEPS_PER_CALL``) gives every batch
+tensor a leading K axis: one call runs the K steps in order, each at its own
+iteration (``state.step`` after the previous update, which seeds the
+dropout and sampling draws), and returns each metric stacked to (K,). K
+calls of one step give the same bits.
 
 The two-stage steps (``make_rcnn_episodic_train_step``,
 ``make_rcnn_pretrain_train_step``) run the same micro-groups as the ranks
@@ -59,8 +61,9 @@ keeps its own normalizers, as in JAX's ``finalize_step``.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..models.rcnn import SampleDraws
@@ -77,11 +80,44 @@ Batch = Dict[str, object]
 DrawsFactory = Callable[[int, int, int], object]
 
 
-def _check_steps_per_call(steps_per_call: int) -> None:
-    if steps_per_call > 1:
-        raise NotImplementedError(
-            "TPU.STEPS_PER_CALL > 1 batches optimizer steps into one TPU "
-            "dispatch; the port runs one step per call (set it to 1)")
+def _per_call(step, steps_per_call: int):
+    """``step`` as is for K = 1; for K > 1, a step over batches stacked on a
+    leading K axis that runs ``step`` on each in order and stacks each
+    metric to (K,) (the JAX package's ``lax.scan`` over K steps)."""
+    k = steps_per_call
+    if k <= 1:
+        return step
+
+    def multi(state: TrainState, batches: Batch):
+        lead = {n: len(v) for n, v in batches.items()}
+        if set(lead.values()) != {k}:
+            raise ValueError(f"TPU.STEPS_PER_CALL = {k} takes batches "
+                             f"stacked on a leading axis of {k}: {lead}")
+        rows = []
+        for i in range(k):
+            state, m = step(state, {n: v[i] for n, v in batches.items()})
+            rows.append(m)
+        return state, {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
+
+    return multi
+
+
+def metric_rows(metrics: Dict[str, torch.Tensor], steps_per_call: int
+                ) -> List[Dict[str, float]]:
+    """A call's metrics as one row of floats a step."""
+    if steps_per_call <= 1:
+        return [{n: float(v) for n, v in metrics.items()}]
+    return [{n: float(v[i]) for n, v in metrics.items()}
+            for i in range(steps_per_call)]
+
+
+def stack_batches(batches: Sequence[Batch]) -> Batch:
+    """K loader batches as one batch with a leading K axis: tensors stacked
+    on their device, the host arrays with numpy."""
+    return {n: (torch.stack([b[n] for b in batches])
+                if isinstance(batches[0][n], torch.Tensor)
+                else np.stack([b[n] for b in batches]))
+            for n in batches[0]}
 
 
 def _apply_device_aug(batch: Batch, img_key: str, ops_key: str,
@@ -180,7 +216,6 @@ def make_pretrain_train_step(model, grid, loss_cfg: FCOSLossCfg,
     """Batch (this rank's slice): images (B, H, W, 3) uint8 BGR, gt_boxes
     (B, M, 4), gt_labels (B, M), gt_valid (B, M), and optionally aug_ops,
     aug_params, image_sizes; B divisible by ``grad_accum``."""
-    _check_steps_per_call(steps_per_call)
     m = max(1, grad_accum)
     g = _Grid(grid, next(model.parameters()).device)
 
@@ -203,7 +238,7 @@ def make_pretrain_train_step(model, grid, loss_cfg: FCOSLossCfg,
 
         return state, _run_micro_groups(state, m, loss_at, group)
 
-    return step
+    return _per_call(step, steps_per_call)
 
 
 def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
@@ -218,7 +253,6 @@ def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
     (E*Q, H, W, 3), query_gt_{boxes,labels,valid} (E*Q, M, ...),
     episode_class_ids (E,), and optionally query_aug_ops,
     query_aug_params, query_image_sizes; E divisible by ``grad_accum``."""
-    _check_steps_per_call(steps_per_call)
     m = max(1, grad_accum)
     g = _Grid(grid, next(model.parameters()).device)
     rank, _ = _ranks(group)
@@ -261,7 +295,7 @@ def make_episodic_train_step(model, grid, loss_cfg: FCOSLossCfg,
 
         return state, _run_micro_groups(state, m, loss_at, group)
 
-    return step
+    return _per_call(step, steps_per_call)
 
 
 class _RCNNStepSetup:
@@ -270,9 +304,8 @@ class _RCNNStepSetup:
     the draw sources by global group."""
 
     def __init__(self, model, grid, canvas: Sequence[int], seed: int,
-                 draws: Optional[DrawsFactory], steps_per_call: int,
-                 grad_accum: int, group: Optional[DataGroup]):
-        _check_steps_per_call(steps_per_call)
+                 draws: Optional[DrawsFactory], grad_accum: int,
+                 group: Optional[DataGroup]):
         self.m = max(1, grad_accum)
         self.group = group
         self.rank, self.world = _ranks(group)
@@ -307,8 +340,7 @@ def make_rcnn_episodic_train_step(model, grid, num_shots: int,
     (TPU.TRAIN_CANVAS). Batch (E episodes) as for
     ``make_episodic_train_step``; E divisible by ``grad_accum``. A group's
     queries keep only the GT of that group's episode classes."""
-    s = _RCNNStepSetup(model, grid, canvas, seed, draws, steps_per_call,
-                       grad_accum, group)
+    s = _RCNNStepSetup(model, grid, canvas, seed, draws, grad_accum, group)
     m = s.m
 
     def step(state: TrainState, batch: Batch):
@@ -335,7 +367,7 @@ def make_rcnn_episodic_train_step(model, grid, num_shots: int,
 
         return state, _run_micro_groups(state, m, loss_at, s.group)
 
-    return step
+    return _per_call(step, steps_per_call)
 
 
 def make_rcnn_pretrain_train_step(model, grid, canvas: Sequence[int],
@@ -350,8 +382,7 @@ def make_rcnn_pretrain_train_step(model, grid, canvas: Sequence[int],
     """Plain two-stage step (pretraining, TFA-RCNN). Batch: images (B, H, W,
     3) uint8 BGR, gt_boxes (B, M, 4), gt_labels (B, M), gt_valid (B, M); B
     divisible by ``grad_accum``."""
-    s = _RCNNStepSetup(model, grid, canvas, seed, draws, steps_per_call,
-                       grad_accum, group)
+    s = _RCNNStepSetup(model, grid, canvas, seed, draws, grad_accum, group)
     m = s.m
 
     def step(state: TrainState, batch: Batch):
@@ -370,4 +401,4 @@ def make_rcnn_pretrain_train_step(model, grid, canvas: Sequence[int],
 
         return state, _run_micro_groups(state, m, loss_at, s.group)
 
-    return step
+    return _per_call(step, steps_per_call)

@@ -5,9 +5,9 @@ bench_pretrain_accum, bf16_fidelity_probe, bench_backbone_exp,
 bench_int8_probe}.py`` runs at depth 18 on small canvases and returns its
 JAX original's JSON keys (the port's additions beside them). The int8
 ``pack`` gives the JAX probe's int8 values and scales exactly on converted
-weights (OIHW here, HWIO there), and ``unpack`` its bf16 kernels. The
-options that name TPU workarounds raise, and every new entry point refuses
-a card it does not have.
+weights (OIHW here, HWIO there), and ``unpack`` its bf16 kernels. ``bench_backbone_exp --variant lhs`` (an XLA
+flag) raises, ``bench_train --steps-per-call 2`` runs, and every new entry
+point refuses a card it does not have.
 """
 
 import os
@@ -114,7 +114,7 @@ def test_bf16_held_parameters_generate_codes():
     sup, boxes, valid = bench.code_inputs(2, (64, 64), "cpu", classes=2)
     with torch.inference_mode():
         want = model.forward_class_code(sup, boxes, valid, 2, False)
-        store_params(model, torch.bfloat16)
+        store_params(model)
         got = model.forward_class_code(sup, boxes, valid, 2, False)
     for key in ("cls_conv", "cls_bias"):
         assert got[key].shape == want[key].shape == (2, *want[key].shape[1:])
@@ -183,10 +183,22 @@ def test_int8_pack_equals_jax_on_converted_weights():
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: bench_backbone_exp.run("cpu", "lhs"), "no port"),
-    (lambda: bench_train.run("cpu", steps_per_call=2), "no port"),
+    pytest.param(lambda: bench_backbone_exp.run("cpu", "lhs"), "no port",
+                 id="<lambda>-no port0"),
+    pytest.param(lambda: bench_train.run("cpu", episodes=2, shot=2,
+                                         canvas=128, iters=1, depth=18,
+                                         steps_per_call=2),
+                 None, id="<lambda>-no port1"),
 ])
 def test_tpu_workaround_options_raise(call, match):
+    """``--variant lhs`` names an XLA scheduler flag and still raises;
+    ``--steps-per-call 2`` runs two optimizer steps a call and reports
+    it, as the JAX driver does."""
+    if match is None:
+        line = call()
+        assert line["extra"]["steps_per_call"] == 2
+        assert all(np.isfinite(v) for v in line["extra"]["losses"].values())
+        return
     with pytest.raises(NotImplementedError, match=match):
         call()
 

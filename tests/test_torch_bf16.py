@@ -3,8 +3,10 @@
 The JAX package serves with ``TPU.EVAL_BF16_RESIDENT``: every float32
 parameter is cast to bfloat16 (``sylph_tpu.utils.precision.bf16_resident``;
 on the CPU ``eval_resident_params`` skips it, so the tests apply it here) and
-activations run in ``compute_dtype=bfloat16``. The port keeps float32
-parameters and runs ``TPU.COMPUTE_DTYPE = "bfloat16"``. Where the two differ
+activations run in ``compute_dtype=bfloat16``. Here the port keeps float32
+parameters (its own policy, ``sylph_tpu_torch/utils/precision.py``, is off on
+the CPU too; tests/test_torch_eval_bf16.py holds it) and runs
+``TPU.COMPUTE_DTYPE = "bfloat16"``. Where the two differ
 by construction the port follows the JAX package, and two tests hold each
 such place on its own, tightly:
 

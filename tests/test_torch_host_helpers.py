@@ -124,7 +124,8 @@ def test_memory_report_prints_once_and_training_goes_on(capsys,
     runner = MetaFCOSRunner(device="cpu")
     cfg = SimpleNamespace(
         SOLVER=SimpleNamespace(MAX_ITER=4, CHECKPOINT_PERIOD=100),
-        TEST=SimpleNamespace(EVAL_PERIOD=0), OUTPUT_DIR="")
+        TEST=SimpleNamespace(EVAL_PERIOD=0),
+        TPU=SimpleNamespace(STEPS_PER_CALL=1), OUTPUT_DIR="")
     calls = []
 
     def step(state, batch):

@@ -1,6 +1,6 @@
 """The port's plain two-stage evaluation and TFA-RCNN surgery against the
 JAX package's (CPU, fp32): ``do_test`` with the base classifier
-(``_do_test_plain_rcnn``) on a tiny synthetic LVIS tree, every
+(``MetaFasterRCNNRunner._do_test_plain``) on a tiny synthetic LVIS tree, every
 ``eval_results`` key within 1e-4; the three surgery cases of
 tests/test_tfa.py (linear -> cosine, linear -> linear, the loud skip) with
 the transplanted parameters equal; and the surgery inside ``build_model``.

@@ -11,7 +11,9 @@ package's, in float32 on the CPU with a tiny R-18 (one-conv towers).
   * the LR schedule at warmup, plateau and decay counts;
   * three optimizer updates (clip, decay, momentum, masks) against the
     optax chain, gradient-free trainable parameters included, and the EMA;
-  * ``TPU.STEPS_PER_CALL`` above 1 raises.
+  * ``TPU.STEPS_PER_CALL`` = 2 takes batches stacked on a leading axis of
+    2 and refuses others (the K-step calls against JAX's scanned steps are
+    in tests/test_torch_steps_per_call.py).
 
 The train steps against JAX's are in tests/test_torch_train_pretrain.py
 and tests/test_torch_train_episodic.py.
@@ -36,7 +38,8 @@ from sylph_tpu_torch.utils.convert_weights import state_dict_from_jax
 
 from torch_port_util import (CANVAS, PARAM_TOL, flat_paths,
                              few_torch_threads, freeze_with,  # noqa: F401
-                             jax_mask, jax_tx, tiny_model_pair)
+                             jax_mask, jax_tx, pretrain_batch,
+                             tiny_model_pair, torch_batch)
 
 
 FREEZE_CASES = {
@@ -128,7 +131,18 @@ def test_three_optimizer_updates_match_optax(pair, clip):
 
 
 def test_steps_per_call_raises(pair):
-    with pytest.raises(NotImplementedError, match="STEPS_PER_CALL"):
-        tsteps.make_pretrain_train_step(pair[4], jax_grid(
-            CANVAS, (8, 16, 32, 64, 128), [64, 128, 256, 512]),
-            trunner._loss_cfg(pair[3]), steps_per_call=2)
+    """A two-step call refuses a batch that is not stacked two deep, and
+    takes one that is: two updates, losses stacked to (2,)."""
+    model = copy.deepcopy(pair[4])
+    tx, _ = topt.build_optimizer(model, base_lr=0.01, warmup_iters=0)
+    state = TrainState(model, tx)
+    step = tsteps.make_pretrain_train_step(model, jax_grid(
+        CANVAS, (8, 16, 32, 64, 128), [64, 128, 256, 512]),
+        trunner._loss_cfg(pair[3]), steps_per_call=2)
+    batch = torch_batch(pretrain_batch(0))
+    with pytest.raises(ValueError, match="STEPS_PER_CALL"):
+        step(state, batch)
+    state, losses = step(state, tsteps.stack_batches([batch, batch]))
+    assert state.step == 2
+    assert all(v.shape == (2,) and torch.isfinite(v).all()
+               for v in losses.values())
