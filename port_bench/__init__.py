@@ -1,0 +1,1 @@
+"""Benchmark of sylph_tpu_torch on one NVIDIA H100: see run.py."""

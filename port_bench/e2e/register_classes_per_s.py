@@ -1,0 +1,7 @@
+"""Classes whose code rows reached the host, over the whole window."""
+
+
+def read(run):
+    if run.kind != "register" or run.window_s <= 0:
+        return None
+    return run.units / run.window_s

@@ -1,0 +1,8 @@
+"""Share of the traced window in which no kernel, copy or set ran on the
+card."""
+
+
+def read(run):
+    if run.kind != "register":
+        return None
+    return run.idle_pct()
