@@ -23,7 +23,11 @@ Each phase adds its wall time to a ``stats`` dict when one is passed (the
 driver keeps the last run's as ``MetaTestDriver.stats``): ``*_wait_s`` is
 time spent waiting for the loader and the copy, ``codegen_s`` / ``query_s``
 the model calls up to their results on the host, ``evaluator_s`` the
-postprocess and ``evaluator.process``, ``evaluate_s`` the final AP.
+postprocess and ``evaluator.process``, ``evaluate_s`` the final AP. Each
+timer is a span (``utils/spans.py``), so under a profiler the same
+intervals appear as ``sylph.*`` ranges: ``h2d`` (the copy, on the worker
+thread), ``wait``, ``infer``, ``fetch``, ``register``, ``evaluator``,
+``evaluate``, ``gather``, ``normalize``.
 """
 
 from __future__ import annotations
@@ -42,9 +46,11 @@ from ..data.meta_dataset import MetaDataset
 from ..ops.decode import DecodeCfg, decode_proposals
 from ..parallel.mesh import DataGroup, gather_class_codes
 from ..runner import resolve_device
+from ..utils.spans import span
 from .postprocess import detections_to_coco_results
 
 WARMUP = 5
+_END = object()
 _SUPPORT_KEYS = ("support_images", "support_boxes", "support_box_valid")
 
 
@@ -92,12 +98,29 @@ def _device_prefetch(loader, keys, device: torch.device, depth: int = 2):
     def gen():
         for item in loader:
             out = dict(item)
+            with span("h2d"):
+                for k in keys:
+                    out[k] = _to_device(item[k], device)
             for k in keys:
-                out[k] = _to_device(item[k], device)
                 out[k + "_host"] = item[k]
             yield out
 
     return _prefetch(gen, depth=depth)
+
+
+def _taken(items, stats: Optional[Dict], key: str):
+    """``items`` one at a time, each take a ``wait`` span timed into
+    ``stats[key]`` (the last one finds the end of the stream)."""
+    it = iter(items)
+    try:
+        while True:
+            with span("wait", stats, key):
+                item = next(it, _END)
+            if item is _END:
+                return
+            yield item
+    finally:
+        it.close()
 
 
 def _save_code(save_dir: Optional[str], name: str,
@@ -138,25 +161,22 @@ def _class_code_calls(model, groups, class_batch: int, dev: torch.device,
     """One ``forward_class_code`` call per group: yields (the group's
     (class_id, class_name) items, its code rows on the device). A call's
     time runs until the card has finished it and the caller has taken its
-    rows."""
+    rows: the ``register`` span holds the caller's ``fetch``."""
+    stats = {} if stats is None else stats
     times: List = []
-    t_wait = time.perf_counter()
-    for g in _device_prefetch(groups, _SUPPORT_KEYS, dev):
-        t0 = time.perf_counter()
-        _add(stats, "support_wait_s", t0 - t_wait)
-        with torch.inference_mode():
-            out = model.forward_class_code(g["support_images"],
-                                           g["support_boxes"],
-                                           g["support_box_valid"],
-                                           g["shot"], False)
-        yield g["items"], out
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
-        _add(stats, "codegen_s", dt)
+    for g in _taken(_device_prefetch(groups, _SUPPORT_KEYS, dev), stats,
+                    "support_wait_s"):
+        with span("register", stats, "codegen_s") as call:
+            with torch.inference_mode():
+                out = model.forward_class_code(g["support_images"],
+                                               g["support_boxes"],
+                                               g["support_box_valid"],
+                                               g["shot"], False)
+            yield g["items"], out
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         _add(stats, "classes", len(g["items"]))
-        times.append((dt, len(g["items"])))
-        t_wait = time.perf_counter()
+        times.append((call.seconds, len(g["items"])))
     if len(times) > WARMUP:
         t = sum(t for t, _ in times[WARMUP:])
         n = sum(n for _, n in times[WARMUP:])
@@ -185,7 +205,8 @@ def generate_class_codes(model, support_loader, *,
     for items, out in _class_code_calls(
             model, _class_groups(support_loader, class_batch, pad=False),
             class_batch, dev, stats):
-        bank = {k: _np_f32(v) for k, v in out.items()}
+        with span("fetch"):
+            bank = {k: _np_f32(v) for k, v in out.items()}
         for i, (cid, cname) in enumerate(items):
             code = {k: v[i:i + 1] for k, v in bank.items()}
             codes[cid] = {"code": code, "class_name": cname}
@@ -232,10 +253,9 @@ def generate_class_codes_sharded(model, support_loader, group: DataGroup, *,
                 torch.zeros((0, *shape[1:]), device=dev))
         local[k] = torch.cat([mine, mine.new_zeros(
             (n - len(items), *shape[1:]))])
-    t0 = time.perf_counter()
-    bank = {k: _np_f32(v) for k, v in gather_class_codes(local,
-                                                         group).items()}
-    _add(stats, "gather_s", time.perf_counter() - t0)
+    with span("gather", stats, "gather_s"):
+        bank = {k: _np_f32(v) for k, v in gather_class_codes(local,
+                                                             group).items()}
     codes: Dict[int, Dict] = {}
     for r, (its, _) in enumerate(shares):
         for j, (cid, cname) in enumerate(its):
@@ -289,26 +309,23 @@ def generate_base_class_codes(model, dataset, mapper, *,
     per_class: Dict[int, List] = {}
     weights: Dict[int, List[float]] = {}
     names = {}
-    t_wait = time.perf_counter()
-    for item in _device_prefetch(
+    for item in _taken(_device_prefetch(
             build_support_set_base_loader(dataset, mapper,
                                           chunk_size=chunk_size,
                                           max_records=max_records),
-            _SUPPORT_KEYS, dev):
-        t0 = time.perf_counter()
-        _add(stats, "base_wait_s", t0 - t_wait)
-        with torch.inference_mode():
-            out = model.forward_class_code(item["support_images"],
-                                           item["support_boxes"],
-                                           item["support_box_valid"],
-                                           chunk_size, False)
-        cid = item["class_id"]
-        per_class.setdefault(cid, []).append(
-            {k: _np_f32(v) for k, v in out.items()})
-        weights.setdefault(cid, []).append(item["weight"])
-        names[cid] = item["class_name"]
-        _add(stats, "base_codegen_s", time.perf_counter() - t0)
-        t_wait = time.perf_counter()
+            _SUPPORT_KEYS, dev), stats, "base_wait_s"):
+        with span("register", stats, "base_codegen_s"):
+            with torch.inference_mode():
+                out = model.forward_class_code(item["support_images"],
+                                               item["support_boxes"],
+                                               item["support_box_valid"],
+                                               chunk_size, False)
+            with span("fetch"):
+                code = {k: _np_f32(v) for k, v in out.items()}
+            cid = item["class_id"]
+            per_class.setdefault(cid, []).append(code)
+            weights.setdefault(cid, []).append(item["weight"])
+            names[cid] = item["class_name"]
     return {cid: {"code": accumulate_base_codes(per_class[cid],
                                                 weights[cid]),
                   "class_name": names[cid]}
@@ -386,37 +403,34 @@ def run_query_inference(infer: Callable, query_loader,
     """PHASE 2: ``infer(images, image_sizes) -> Detections`` over the query
     set, into ``evaluator``; returns ``evaluator.evaluate()``."""
     dev = resolve_device(device)
+    stats = {} if stats is None else stats
     contiguous_to_dataset = {v: k for k, v in id_map.items()}
     times, n_imgs = [], 0
-    t_wait = time.perf_counter()
-    for i, batch in enumerate(_device_prefetch(
-            query_loader, ("images", "image_sizes"), dev)):
-        t0 = time.perf_counter()
-        _add(stats, "query_wait_s", t0 - t_wait)
-        det = infer(batch["images"], batch["image_sizes"]).numpy()
-        t1 = time.perf_counter()
+    for i, batch in enumerate(_taken(_device_prefetch(
+            query_loader, ("images", "image_sizes"), dev), stats,
+            "query_wait_s")):
+        with span("infer", stats, "query_s") as enqueue:
+            out = infer(batch["images"], batch["image_sizes"])
+        with span("fetch", stats, "query_s") as fetch:
+            det = out.numpy()
         n = int(batch["batch_valid"].sum())
-        _add(stats, "query_s", t1 - t0)
         _add(stats, "query_batches", 1)
         _add(stats, "query_images", n)
         if i >= WARMUP:
-            times.append((t1 - t0, n))
+            times.append((enqueue.seconds + fetch.seconds, n))
         n_imgs += n
-        evaluator.process(detections_to_coco_results(
-            det, batch["image_ids"], batch["image_sizes_host"],
-            batch["orig_sizes"], contiguous_to_dataset,
-            batch_valid=batch["batch_valid"]))
-        _add(stats, "evaluator_s", time.perf_counter() - t1)
-        t_wait = time.perf_counter()
+        with span("evaluator", stats, "evaluator_s"):
+            evaluator.process(detections_to_coco_results(
+                det, batch["image_ids"], batch["image_sizes_host"],
+                batch["orig_sizes"], contiguous_to_dataset,
+                batch_valid=batch["batch_valid"]))
     if times:
         tot_t = sum(t for t, _ in times)
         tot_n = sum(n for _, n in times)
         print(f"[meta-eval] query inference: {tot_n/max(tot_t,1e-9):.2f} "
               f"img/s ({n_imgs} images)")
-    t0 = time.perf_counter()
-    res = evaluator.evaluate()
-    _add(stats, "evaluate_s", time.perf_counter() - t0)
-    return res
+    with span("evaluate", stats, "evaluate_s"):
+        return evaluator.evaluate()
 
 
 class MetaTestDriver:
@@ -495,9 +509,8 @@ class MetaTestDriver:
             codes = replace_with_base_codes(
                 codes, {c: v for c, v in base_codes.items()
                         if c not in novel_cids})
-        t0 = time.perf_counter()
-        bank = normalize_class_codes(self.model, codes, device=self.device)
-        stats["normalize_s"] = time.perf_counter() - t0
+        with span("normalize", stats, "normalize_s"):
+            bank = normalize_class_codes(self.model, codes, device=self.device)
         self.bank = bank
 
         qry_ds = MetaDataset(self.dataset_dict, "episodic_test_queryset",

@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.roi_align import multilevel_roi_align
+from ..utils.spans import span
 from .layers import Conv2d, GroupNorm, Scale
 
 
@@ -144,10 +145,11 @@ class CodeGeneratorHead(nn.Module):
         s = boxes.shape[0]
         assert s % num_shots == 0, (s, num_shots)
         feats = [f.to(self.compute_dtype) for f in features]
-        x = multilevel_roi_align(
-            feats, self.strides, boxes, box_valid,
-            torch.arange(s, device=boxes.device),
-            output_size=self.pooler_resolution)
+        with span("roi_align"):
+            x = multilevel_roi_align(
+                feats, self.strides, boxes, box_valid,
+                torch.arange(s, device=boxes.device),
+                output_size=self.pooler_resolution)
 
         for i, norm_act in enumerate(self.tower_acts):
             x = norm_act(self, getattr(self, f"tower_conv{i}")(x))

@@ -25,12 +25,14 @@ pass (``torch.utils.checkpoint``, non-reentrant).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.spans import span
 from .code_generator import CodeGeneratorHead
 from .fcos_head import FCOSHead, HeadOutputs
 from .fpn import FPN
@@ -115,27 +117,32 @@ class MetaOneStageDetector(nn.Module):
 
     def extract_features(self, images: torch.Tensor) -> List[torch.Tensor]:
         """images (B, H, W, 3) BGR canvas -> list of 5 FPN maps (NCHW)."""
-        if self.stop_backbone_grad:
-            with torch.no_grad():
-                return self.fpn(self.backbone(self._normalize(images)))
-        x = self._normalize(images)
-        if self.remat_backbone and torch.is_grad_enabled():
-            feats = checkpoint(self.backbone, x, use_reentrant=False)
-        else:
-            feats = self.backbone(x)
-        return self.fpn(feats)
+        grad = (torch.no_grad() if self.stop_backbone_grad
+                else contextlib.nullcontext())
+        with grad:
+            x = self._normalize(images)
+            with span("backbone"):
+                if self.remat_backbone and torch.is_grad_enabled():
+                    feats = checkpoint(self.backbone, x, use_reentrant=False)
+                else:
+                    feats = self.backbone(x)
+            with span("fpn"):
+                return self.fpn(feats)
 
     # ----------------------------------------------------------------- modes
     def forward_base(self, images: torch.Tensor) -> HeadOutputs:
-        return self.fcos_head(self.extract_features(images))
+        feats = self.extract_features(images)
+        with span("fcos_head"):
+            return self.fcos_head(feats)
 
     def _codes(self, feats, boxes, box_valid, num_shots: int, training: bool,
                generator: Optional[torch.Generator]):
         kw = ({"generator": generator}
               if isinstance(self.code_generator, ROIEncoder) else {})
-        return self.code_generator(feats, boxes, box_valid,
-                                   num_shots=num_shots, training=training,
-                                   **kw)
+        with span("code_generator"):
+            return self.code_generator(feats, boxes, box_valid,
+                                       num_shots=num_shots,
+                                       training=training, **kw)
 
     def forward_class_code(self, support_images: torch.Tensor,
                            support_boxes: torch.Tensor,
@@ -174,8 +181,9 @@ class MetaOneStageDetector(nn.Module):
     def forward_instances(self, images: torch.Tensor,
                           class_code: Dict[str, torch.Tensor]) -> HeadOutputs:
         """Conditioned dense predictions for decoding (query path)."""
-        return self.fcos_head(self.extract_features(images),
-                              class_code=class_code)
+        feats = self.extract_features(images)
+        with span("fcos_head"):
+            return self.fcos_head(feats, class_code=class_code)
 
     def forward(self, images: torch.Tensor) -> HeadOutputs:
         return self.forward_base(images)

@@ -49,6 +49,7 @@ image's ROIs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -64,6 +65,7 @@ from ..ops.losses import bce_with_logits, smooth_l1
 from ..ops.nms import batched_multiclass_nms
 from ..ops.roi_align import multilevel_roi_align
 from ..structures import Detections, GTBoxes, pairwise_iou
+from ..utils.spans import span
 from .code_generator import CodeGeneratorHead
 from .fpn import FPN
 from .layers import Conv2d, Linear, flatten_nchw
@@ -484,10 +486,14 @@ class FewShotRCNN(nn.Module):
         """images (B, H, W, 3) BGR canvas -> P2..P6 (NCHW). With
         ``stop_backbone_grad`` no autograd graph is built (the JAX package's
         stop_gradient after the FPN), so no activation is kept."""
-        if self.stop_backbone_grad:
-            with torch.no_grad():
-                return self.fpn(self.backbone(self._normalize(images)))
-        return self.fpn(self.backbone(self._normalize(images)))
+        grad = (torch.no_grad() if self.stop_backbone_grad
+                else contextlib.nullcontext())
+        with grad:
+            x = self._normalize(images)
+            with span("backbone"):
+                feats = self.backbone(x)
+            with span("fpn"):
+                return self.fpn(feats)
 
     def forward_rpn(self, images: torch.Tensor):
         feats = self.extract_features(images)
@@ -499,20 +505,25 @@ class FewShotRCNN(nn.Module):
                     class_code: Optional[Dict[str, torch.Tensor]] = None):
         """ROIAlign over P2-P5 of one image ((1, C, H, W) maps) and the box
         head for its (P, 4) rois."""
-        pooled = multilevel_roi_align(
-            feats[:self.roi_in_levels], self.ROI_STRIDES, rois, rois_valid,
-            torch.zeros(rois.shape[0], dtype=torch.long, device=rois.device),
-            output_size=self.pooler_resolution)
-        return self.box_head(pooled, class_code)
+        with span("roi_align"):
+            pooled = multilevel_roi_align(
+                feats[:self.roi_in_levels], self.ROI_STRIDES, rois,
+                rois_valid, torch.zeros(rois.shape[0], dtype=torch.long,
+                                        device=rois.device),
+                output_size=self.pooler_resolution)
+        with span("box_head"):
+            return self.box_head(pooled, class_code)
 
     def forward_class_code(self, support_images: torch.Tensor,
                            support_boxes: torch.Tensor,
                            support_box_valid: torch.Tensor, num_shots: int,
                            training: bool = False) -> Dict[str, torch.Tensor]:
         feats = self.extract_features(support_images)
-        return self.code_generator(feats[:self.roi_in_levels], support_boxes,
-                                   support_box_valid, num_shots=num_shots,
-                                   training=training)
+        with span("code_generator"):
+            return self.code_generator(feats[:self.roi_in_levels],
+                                       support_boxes, support_box_valid,
+                                       num_shots=num_shots,
+                                       training=training)
 
     def normalize_code(self, codes: Dict[str, torch.Tensor]
                        ) -> Dict[str, torch.Tensor]:
@@ -629,38 +640,42 @@ class FewShotRCNN(nn.Module):
         background column, class-agnostic decode, clip, and the (P, E) grid
         flattened row-major into candidates -> boxes (B, P*E, 4), scores,
         classes and valid (B, P*E)."""
-        b, p = props.shape[:2]
-        n_codes = (class_code["cls_conv"].shape[0]
-                   if class_code is not None else self.num_classes)
-        if class_valid is None:
-            class_valid = torch.ones((n_codes,), dtype=torch.bool,
-                                     device=props.device)
-        hw = image_sizes.float()
-        out = []
-        for i in range(b):
-            scores, rdeltas = self.roi_forward(
-                [f[i:i + 1] for f in feats], props[i], props_valid[i],
-                class_code)
-            probs = torch.softmax(scores, dim=-1)[:, :-1]  # drop background
-            e = probs.shape[1]
-            boxes = decode_deltas(props[i], rdeltas, ROI_DELTA_WEIGHTS)
-            lim = torch.stack([hw[i, 1], hw[i, 0], hw[i, 1], hw[i, 0]])
-            boxes = torch.minimum(torch.clamp(boxes, min=0.0), lim)
-            flat = probs.reshape(-1)
-            valid = (props_valid[i].repeat_interleave(e)
-                     & (flat > score_thresh) & class_valid[:e].repeat(p))
-            out.append((boxes.repeat_interleave(e, dim=0), flat,
-                        torch.arange(e, device=flat.device).repeat(p),
-                        valid))
-        return [torch.stack(parts) for parts in zip(*out)]
+        with span("roi_stage"):
+            b, p = props.shape[:2]
+            n_codes = (class_code["cls_conv"].shape[0]
+                       if class_code is not None else self.num_classes)
+            if class_valid is None:
+                class_valid = torch.ones((n_codes,), dtype=torch.bool,
+                                         device=props.device)
+            hw = image_sizes.float()
+            out = []
+            for i in range(b):
+                scores, rdeltas = self.roi_forward(
+                    [f[i:i + 1] for f in feats], props[i], props_valid[i],
+                    class_code)
+                # drop background
+                probs = torch.softmax(scores, dim=-1)[:, :-1]
+                e = probs.shape[1]
+                boxes = decode_deltas(props[i], rdeltas, ROI_DELTA_WEIGHTS)
+                lim = torch.stack([hw[i, 1], hw[i, 0], hw[i, 1], hw[i, 0]])
+                boxes = torch.minimum(torch.clamp(boxes, min=0.0), lim)
+                flat = probs.reshape(-1)
+                valid = (props_valid[i].repeat_interleave(e)
+                         & (flat > score_thresh) & class_valid[:e].repeat(p))
+                out.append((boxes.repeat_interleave(e, dim=0), flat,
+                            torch.arange(e, device=flat.device).repeat(p),
+                            valid))
+            return [torch.stack(parts) for parts in zip(*out)]
 
     def _two_stage_infer(self, images, class_code, anchors, level_splits,
                          image_sizes, rpn_post_nms, score_thresh, nms_thresh,
                          max_dets, class_valid, rpn_pre_nms) -> Detections:
-        feats, obj_logits, deltas = self.forward_rpn(images)
-        props, _, props_valid = rpn_proposals(
-            obj_logits, deltas, anchors, level_splits, image_sizes,
-            pre_nms_topk=rpn_pre_nms, post_nms_topk=rpn_post_nms)
+        feats = self.extract_features(images)
+        with span("rpn"):
+            obj_logits, deltas = self.rpn_head(feats)
+            props, _, props_valid = rpn_proposals(
+                obj_logits, deltas, anchors, level_splits, image_sizes,
+                pre_nms_topk=rpn_pre_nms, post_nms_topk=rpn_post_nms)
         boxes, scores, classes, valid = self.roi_candidates(
             feats, props, props_valid, image_sizes, class_code, score_thresh,
             class_valid)

@@ -20,6 +20,7 @@ import torch
 
 from ..structures import Detections
 from .nms import batched_multiclass_nms
+from ..utils.spans import span
 
 NEG_INF = -1e10
 
@@ -159,20 +160,22 @@ def decode_proposals(logits: torch.Tensor, reg_pred: torch.Tensor,
     image_sizes: (B, 2) (h, w) content size on the canvas, for the clip.
     nms_impl: passed to ``batched_multiclass_nms`` (None = by device).
     """
-    cand = select_candidates(logits, reg_pred, ctrness_pred, iou_pred,
-                             locations, strides, cfg, level_splits,
-                             class_valid)
-    # NMS runs on unclipped boxes, as in the reference.
-    nboxes, nscores, nclasses, nvalid, keep_idx = batched_multiclass_nms(
-        cand.boxes, cand.scores, cand.classes, cand.valid, cfg.nms_thresh,
-        cfg.post_nms_topk, impl=nms_impl)
-    hw = image_sizes.float()
-    wh = torch.stack([hw[:, 1], hw[:, 0], hw[:, 1], hw[:, 0]], dim=-1)
-    nboxes = torch.minimum(torch.clamp(nboxes, min=0.0), wh[:, None, :])
-    keep = keep_idx.long()
-    return Detections(
-        boxes=nboxes, scores=nscores, classes=nclasses.to(torch.int32),
-        valid=nvalid,
-        locations=cand.locations.gather(1, keep[..., None].expand(-1, -1, 2)),
-        fpn_levels=cand.levels.gather(1, keep),
-    )
+    with span("decode"):
+        cand = select_candidates(logits, reg_pred, ctrness_pred, iou_pred,
+                                 locations, strides, cfg, level_splits,
+                                 class_valid)
+        # NMS runs on unclipped boxes, as in the reference.
+        nboxes, nscores, nclasses, nvalid, keep_idx = batched_multiclass_nms(
+            cand.boxes, cand.scores, cand.classes, cand.valid, cfg.nms_thresh,
+            cfg.post_nms_topk, impl=nms_impl)
+        hw = image_sizes.float()
+        wh = torch.stack([hw[:, 1], hw[:, 0], hw[:, 1], hw[:, 0]], dim=-1)
+        nboxes = torch.minimum(torch.clamp(nboxes, min=0.0), wh[:, None, :])
+        keep = keep_idx.long()
+        return Detections(
+            boxes=nboxes, scores=nscores, classes=nclasses.to(torch.int32),
+            valid=nvalid,
+            locations=cand.locations.gather(
+                1, keep[..., None].expand(-1, -1, 2)),
+            fpn_levels=cand.levels.gather(1, keep),
+        )

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import nms_kernel
+from ..utils.spans import span
 
 NEG_INF = -1e10
 CHUNK = 64  # candidates per chunk of the kernel's ranked scan
@@ -219,21 +220,23 @@ def batched_multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
       ...): the top ``max_outputs`` greedy picks by score; ``gather_idx``
       indexes the input candidate axis.
     """
-    if impl not in (None, "reference"):
-        raise ValueError(f"unknown NMS impl {impl!r}")
-    shifted = class_offset_boxes(boxes, classes, valid)
-    if impl == "reference" or not boxes.is_cuda:
-        idx, ok = nms_select_reference(shifted, scores, valid, iou_threshold,
-                                       max_outputs)
-    else:
-        planes = shifted.float().permute(2, 0, 1).contiguous()
-        idx, ok = nms_kernel.nms_cuda(
-            planes[0], planes[1], planes[2], planes[3],
-            scores.float().contiguous(), valid.to(torch.int32).contiguous(),
-            iou_threshold, max_outputs)
-        ok = ok.bool()
+    with span("nms"):
+        if impl not in (None, "reference"):
+            raise ValueError(f"unknown NMS impl {impl!r}")
+        shifted = class_offset_boxes(boxes, classes, valid)
+        if impl == "reference" or not boxes.is_cuda:
+            idx, ok = nms_select_reference(shifted, scores, valid,
+                                           iou_threshold, max_outputs)
+        else:
+            planes = shifted.float().permute(2, 0, 1).contiguous()
+            idx, ok = nms_kernel.nms_cuda(
+                planes[0], planes[1], planes[2], planes[3],
+                scores.float().contiguous(),
+                valid.to(torch.int32).contiguous(), iou_threshold,
+                max_outputs)
+            ok = ok.bool()
 
-    gidx = idx.long()
-    out_boxes = boxes.gather(1, gidx[..., None].expand(-1, -1, 4))
-    out_scores = torch.where(ok, scores.gather(1, gidx), 0.0)
-    return out_boxes, out_scores, classes.gather(1, gidx), ok, idx
+        gidx = idx.long()
+        out_boxes = boxes.gather(1, gidx[..., None].expand(-1, -1, 4))
+        out_scores = torch.where(ok, scores.gather(1, gidx), 0.0)
+        return out_boxes, out_scores, classes.gather(1, gidx), ok, idx
