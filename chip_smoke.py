@@ -248,7 +248,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal by sha256 to the same run without it, the evaluation on bf16
      weights and the weights float32 before and after); and one dilation-2
      ``DFConv2d`` on the card against the CPU (phase 20's limits). One
-     ``switches`` line.
+     ``switches`` line;
+ 28. the ROIAlign kernel (``csrc/roi_align.cu``) against its plain twin
+     (``multilevel_roi_align_plain``), max |kernel - twin| within 1e-5 x
+     max |map| (float32 sums of at most 64 taps in another order): the
+     two-stage query shape (a real RPN's 1000 proposals of the second image
+     of a 1024x1344 batch, bf16 P2-P5 as per-image slices), registration's
+     (80 supports at 384x384, the FCOS levels P3-P7), the ROIEncoder's (10
+     supports), and edges on seeded maps (degenerate, inverted, off-map and
+     invalid boxes, ``sampling_ratio`` 2, float32 maps, one-level
+     ``roi_align``); the training path's map gradients (bf16 and float32
+     maps, 512 ROIs of per-image slices) bit-equal to the twin's; the
+     launch and ROI counts after ``roi_forward`` and a registration call;
+     the kernel's time (CUDA-graph replays, level assignment included)
+     beside its bound (the outputs and the assigned levels' maps, once)
+     and the twin's at the query and registration shapes; and the share of
+     the kernel's traced time that the profiler ties to the
+     ``sylph.roi_align`` span around it. One ``roi_align`` line.
 
 The last lines are the card's ``name, power.limit``, one JSON object
 listing every kernel with its launches (in all, by path and by ranking
@@ -296,8 +312,11 @@ from sylph_tpu_torch.meta_faster_rcnn_runner import (
     eval_anchor_grid, train_anchor_grid)
 from sylph_tpu_torch.models import rcnn
 from sylph_tpu_torch.ops.deform_conv import DFConv2d
-from sylph_tpu_torch.ops.roi_align import multilevel_roi_align
-from sylph_tpu_torch.ops import nms_kernel
+from sylph_tpu_torch.ops.roi_align import (assign_levels,
+                                           multilevel_roi_align,
+                                           multilevel_roi_align_plain,
+                                           roi_align, roi_align_plain)
+from sylph_tpu_torch.ops import nms_kernel, roi_align_kernel
 from sylph_tpu_torch.ops.decode import select_candidates
 from sylph_tpu_torch.ops.image_ops import resize_shortest_edge_device
 from sylph_tpu_torch.ops.nms import (batched_multiclass_nms,
@@ -320,7 +339,8 @@ from sylph_tpu_torch.tools.bench_common import (CANVAS, N_CLASSES,
                                                 QueryPath, query_images,
                                                 random_bank)
 from sylph_tpu_torch.tools.quality_loop import card_line
-from sylph_tpu_torch.tools.nms_audit import NMSAudit, nms_bound_ms, time_ms
+from sylph_tpu_torch.tools.nms_audit import (HBM_BYTES_PER_S, NMSAudit,
+                                             nms_bound_ms, time_ms)
 from sylph_tpu_torch.tools.profile_meta_test import DATA as META_TEST_DATA
 from sylph_tpu_torch.tools.profile_meta_test import (ONE_STAGE, RCNN_DATA,
                                                      meta_test_cfg,
@@ -1236,10 +1256,11 @@ def query_batch(cfg, dataset_dict, device="cuda"):
             torch.as_tensor(batch["image_sizes"], device=device))
 
 
-def roi_align_cost(model, images, sizes, cfg):
+def roi_align_cost(model, images, sizes, cfg,
+                   pool=multilevel_roi_align):
     """ROIAlign of one image's proposals at P2-P5 (as ``roi_forward`` runs
-    it): ms on the card (median of 5 event-timed calls) and the peak memory
-    it adds, in GB."""
+    it) by ``pool`` (the kernel's dispatch, or the twin): ms on the card
+    (median of 5 event-timed calls) and the peak memory it adds, in GB."""
     grid = eval_anchor_grid(cfg)
     with torch.inference_mode():
         feats, logits, deltas = model.forward_rpn(images[:1])
@@ -1249,18 +1270,18 @@ def roi_align_cost(model, images, sizes, cfg):
             pre_nms_topk=cfg.MODEL.RPN.PRE_NMS_TOPK_TEST,
             post_nms_topk=cfg.MODEL.RPN.POST_NMS_TOPK_TEST)
 
-        def pool():
-            return multilevel_roi_align(
+        def call():
+            return pool(
                 feats[:4], model.ROI_STRIDES, props[0], valid[0],
                 torch.zeros(props.shape[1], dtype=torch.long,
                             device="cuda"),
                 output_size=7)
 
-        ms = time_ms(pool, 1, warmup=1, rounds=5)
+        ms = time_ms(call, 1, warmup=1, rounds=5)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        pool()
+        call()
         torch.cuda.synchronize()
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     return ms, peak, int(props.shape[1])
@@ -1386,8 +1407,11 @@ def phase_rcnn_meta_test(work: str):
         f"({roi_bound[1]}), twin {roi_plain:.3f} ms; "
         f"{int(det.valid.sum())} detections")
     ra_ms, ra_gb, n_props = roi_align_cost(model, images, sizes, cfg)
-    log(f"[rcnn] ROIAlign of {n_props} proposals at P2-P5: {ra_ms:.2f} ms, "
-        f"+{ra_gb:.2f} GB peak")
+    twin_ms, twin_gb, _ = roi_align_cost(model, images, sizes, cfg,
+                                         multilevel_roi_align_plain)
+    log(f"[rcnn] ROIAlign of {n_props} proposals at P2-P5: kernel "
+        f"{ra_ms:.3f} ms, +{ra_gb:.3f} GB peak; twin {twin_ms:.2f} ms, "
+        f"+{twin_gb:.2f} GB")
     line = {"rcnn": "meta_test", "config": "Meta-RCNN-FPN-finetune.yaml",
         "eval_batch": cfg.TPU.EVAL_BATCH,
         "query_img_per_s": st["query_images"] / st["query_s"],
@@ -1401,7 +1425,9 @@ def phase_rcnn_meta_test(work: str):
                      "roi_nms_plain_ms": roi_plain,
                      "nms_routes": bank_routes},
         "roi_align_ms_per_image": ra_ms,
-        "roi_align_peak_gb_per_image": ra_gb}
+        "roi_align_peak_gb_per_image": ra_gb,
+        "roi_align_twin_ms_per_image": twin_ms,
+        "roi_align_twin_peak_gb_per_image": twin_gb}
     return {"rcnn_meta_test": counts, "rcnn_bank_337": bank_counts}, line
 
 
@@ -3590,6 +3616,284 @@ def phase_switches(work: str, card: str):
             **bf16_counts}, line
 
 
+# ------------------------------------------------------------- ROIAlign
+ROI_ALIGN_REL_LIMIT = 1e-5  # of max |map|: float32 sums in another order
+
+
+def roi_align_case(what: str, feats, strides, boxes, valid, bidx,
+                   **opts) -> float:
+    """One call of the kernel against the twin on the same inputs -> the
+    largest gap over max |map|; raises past ``ROI_ALIGN_REL_LIMIT``."""
+    with torch.no_grad():
+        got = multilevel_roi_align(feats, strides, boxes, valid, bidx, **opts)
+        want = multilevel_roi_align_plain(feats, strides, boxes, valid, bidx,
+                                          **opts)
+    if (got.dtype != torch.float32 or not got.is_contiguous()
+            or got.shape != want.shape):
+        raise AssertionError(f"{what}: kernel gave {got.dtype} "
+                             f"{tuple(got.shape)}, twin {tuple(want.shape)}")
+    top = max(float(f.float().abs().max()) for f in feats)
+    rel = float((got - want).abs().max()) / top
+    if not rel <= ROI_ALIGN_REL_LIMIT:
+        raise AssertionError(f"{what}: max |kernel - twin| = {rel:.3e} x "
+                             f"max |map|, limit {ROI_ALIGN_REL_LIMIT}")
+    if not torch.all(got[~valid] == 0):
+        raise AssertionError(f"{what}: an invalid ROI pooled nonzero")
+    log(f"[roi_align] {what}: N={boxes.shape[0]}, {len(feats)} levels "
+        f"{feats[0].dtype}: max |kernel - twin| {rel:.2e} x max |map|")
+    return rel
+
+
+def roi_align_bound_ms(feats, strides, boxes, valid, output_size: int):
+    """Least time for one call's bytes: (N, C, P, P) float32 written once
+    and each level that a valid ROI is assigned to read once."""
+    lvl = assign_levels(boxes, strides, len(feats))
+    used = set(lvl[valid].unique().tolist())
+    n, c = boxes.shape[0], feats[0].shape[1]
+    nbytes = (n * c * output_size ** 2 * 4
+              + sum(f.numel() * f.element_size()
+                    for i, f in enumerate(feats) if i in used))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def roi_align_times(feats, strides, boxes, valid, bidx, **opts) -> dict:
+    """Kernel ms (20 calls a CUDA-graph replay, the level assignment
+    included), bound ms and twin ms (host-issued, median of 3)."""
+    args = (feats, strides, boxes, valid, bidx)
+    with torch.no_grad():
+        kernel = time_ms(lambda: multilevel_roi_align(*args, **opts), 20,
+                         graph=True)
+        twin = time_ms(lambda: multilevel_roi_align_plain(*args, **opts), 1,
+                       warmup=1, rounds=3)
+    return {"kernel_ms": kernel,
+            "bound_ms": roi_align_bound_ms(feats, strides, boxes, valid,
+                                           opts["output_size"]),
+            "twin_ms": twin}
+
+
+def roi_align_span_share(call) -> dict:
+    """Profile one ``call()`` inside a ``sylph.roi_align`` range: the
+    device events recorded, the kernel's device ns by name, and the share
+    of it whose launch the profiler ties to a host op inside the range (as
+    port_bench's ``Timeline`` attributes kernels)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("sylph.roi_align"):
+            call()
+        torch.cuda.synchronize()
+    launch, ranges, kernels, device = {}, [], [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            if e.linked_correlation_id() == 0:
+                launch.setdefault(e.correlation_id(), e.start_ns())
+            if e.name() == "sylph.roi_align":
+                ranges.append((e.start_ns(), e.end_ns()))
+            continue
+        device += 1
+        if "roi_align_level_kernel" in e.name():
+            kernels.append((e.end_ns() - e.start_ns(),
+                            e.linked_correlation_id()))
+    total = sum(d for d, _ in kernels)
+    inside = sum(d for d, corr in kernels if corr in launch
+                 and any(a <= launch[corr] <= b for a, b in ranges))
+    return {"device_events": device, "kernel_ns": total,
+            "share_inside_span": inside / total if total else None}
+
+
+def _roi_edge_boxes(rng, n: int, canvas, batch: int):
+    """Boxes over every level, and the edges: degenerate and inverted,
+    wholly and partly off the map, tiny, huge, invalid."""
+    h, w = canvas
+    xy = rng.uniform(-0.1 * w, 0.9 * w, size=(n, 2))
+    wh = np.exp(rng.uniform(np.log(1.0), np.log(1.2 * max(h, w)),
+                            size=(n, 2)))
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    boxes[0, 2] = boxes[0, 0]                          # degenerate width
+    boxes[1, 3] = boxes[1, 1] - 5.0                    # inverted height
+    boxes[2] = [-600.0, -500.0, -400.0, -300.0]        # off the map
+    boxes[3] = [w - 10.0, h - 12.0, w + 300.0, h + 200.0]  # partly off
+    boxes[4] = [5.0, 6.0, 5.5, 6.25]                   # tiny
+    boxes[5] = [-2.0 * w, -2.0 * h, 3.0 * w, 3.0 * h]  # huge
+    valid = np.ones(n, bool)
+    valid[rng.choice(np.arange(6, n), 8, replace=False)] = False
+    bidx = rng.randint(0, batch, size=n)
+    dev = "cuda"
+    return (torch.as_tensor(boxes, device=dev),
+            torch.as_tensor(valid, device=dev),
+            torch.as_tensor(bidx, dtype=torch.long, device=dev))
+
+
+def _roi_edges() -> dict:
+    """Seeded maps at the FCOS and two-stage levels: the edge boxes in
+    bf16 and float32, NCHW and channels-last, adaptive and
+    ``sampling_ratio`` 2, slices with ``batch_idx`` 0, one-level
+    ``roi_align``, and a call with no ROIs."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    rng = np.random.RandomState(28)
+    errs = {}
+    canvas = (320, 448)
+    layouts = {"nchw": torch.contiguous_format, "nhwc": torch.channels_last}
+    for strides, dtype, layout in itertools.product(
+            ((4, 8, 16, 32), (8, 16, 32, 64, 128)),
+            (torch.bfloat16, torch.float32), layouts):
+        maps = [torch.randn(3, 64, canvas[0] // s, canvas[1] // s,
+                            generator=gen, device="cuda").to(
+                                dtype, memory_format=layouts[layout])
+                for s in strides]
+        boxes, valid, bidx = _roi_edge_boxes(rng, 300, canvas, 3)
+        tag = f"L{len(strides)}_{str(dtype)[6:]}_{layout}"
+        for ratio in (0, 2):
+            errs[f"edges_{tag}_s{ratio}"] = roi_align_case(
+                f"edges_{tag}_s{ratio}", maps, strides, boxes, valid, bidx,
+                output_size=7, sampling_ratio=ratio)
+        errs[f"slices_{tag}"] = roi_align_case(
+            f"slices_{tag}", [m[2:3] for m in maps], strides, boxes, valid,
+            torch.zeros_like(bidx), output_size=7)
+    with torch.no_grad():
+        one = roi_align(maps[1], boxes, bidx, spatial_scale=1 / 16,
+                        output_size=7, sampling_ratio=0)
+        ref = roi_align_plain(maps[1], boxes, bidx, spatial_scale=1 / 16,
+                              output_size=7, sampling_ratio=0)
+    rel = float((one - ref).abs().max()) / float(maps[1].abs().max())
+    if not rel <= ROI_ALIGN_REL_LIMIT:
+        raise AssertionError(f"one-level roi_align: {rel:.3e} x max |map|")
+    errs["one_level"] = rel
+    empty = multilevel_roi_align(maps, strides, boxes[:0], valid[:0],
+                                 bidx[:0], output_size=7)
+    if tuple(empty.shape) != (0, 64, 7, 7):
+        raise AssertionError(f"no ROIs gave {tuple(empty.shape)}")
+    return errs
+
+
+def _roi_grads(feats, strides, rois) -> dict:
+    """The training path: ``multilevel_roi_align`` on per-image slices of
+    maps that train, its map gradients against the twin's own autograd,
+    bit for bit, in bf16 and float32, twice each."""
+    n = rois.shape[0]
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+    zeros = torch.zeros(n, dtype=torch.long, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(280)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        maps = [f.detach().to(dtype).requires_grad_() for f in feats]
+        grad = torch.randn((n, maps[0].shape[1], 7, 7), generator=gen,
+                           device="cuda")
+        runs = []
+        for pool in (multilevel_roi_align, multilevel_roi_align_plain,
+                     multilevel_roi_align):
+            pooled = pool([m[1:2] for m in maps], strides, rois, ones, zeros,
+                          output_size=7)
+            runs.append(torch.autograd.grad(pooled, maps, grad))
+        for got in (runs[0], runs[2]):
+            for i, (g, w) in enumerate(zip(got, runs[1])):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    raise AssertionError(
+                        f"{dtype} maps: level {i}'s gradient differs from "
+                        f"the twin's by {float((g - w).abs().max()):.3e}")
+        out[str(dtype)[6:]] = "bit-equal"
+        log(f"[roi_align] training gradients, {dtype} maps, {n} ROIs: "
+            "bit-equal to the twin's, twice")
+    return out
+
+
+def phase_roi_align(work: str, card: str) -> dict:
+    """Phase 28."""
+    earlier = roi_align_kernel.LAUNCHES  # phases 4-27's main paths
+    rcnn_cfg = rcnn_meta_test_cfg(work)
+    model = build_rcnn_model_from_cfg(rcnn_cfg, device="cuda")
+    canvas = tuple(rcnn_cfg.TPU.EVAL_CANVAS)
+    rng = np.random.RandomState(280)
+    images = torch.as_tensor(
+        rng.randint(0, 256, (2, *canvas, 3)).astype(np.float32),
+        device="cuda")
+    sizes = torch.tensor([list(canvas)] * 2, dtype=torch.int32,
+                         device="cuda")
+    grid = eval_anchor_grid(rcnn_cfg)
+    with torch.inference_mode():
+        feats, logits, deltas = model.forward_rpn(images)
+        props, _, pvalid = rcnn.rpn_proposals(
+            logits, deltas, torch.as_tensor(grid.anchors, device="cuda"),
+            grid.level_splits, sizes,
+            pre_nms_topk=rcnn_cfg.MODEL.RPN.PRE_NMS_TOPK_TEST,
+            post_nms_topk=rcnn_cfg.MODEL.RPN.POST_NMS_TOPK_TEST)
+    feats = [f.clone() for f in feats[:4]]
+    props, pvalid = props.clone(), pvalid.clone()
+    strides = model.ROI_STRIDES
+    query = ([f[1:2] for f in feats], strides, props[1], pvalid[1],
+             torch.zeros(props.shape[1], dtype=torch.long, device="cuda"))
+    lvl = assign_levels(props[1], strides, 4)
+    errs = {"query": roi_align_case("query (cell 2's shape)", *query,
+                                    output_size=7)}
+    levels_used = torch.bincount(lvl[pvalid[1]], minlength=4).tolist()
+
+    # registration: 80 supports at 384x384 on the FCOS levels
+    fcos_cfg = serving_cfg()
+    fcos = build_model_from_cfg(fcos_cfg, device="cuda")
+    support = tuple(fcos_cfg.TPU.SUPPORT_CANVAS)
+    s_img = torch.as_tensor(rng.randint(0, 256, (80, *support, 3))
+                            .astype(np.float32), device="cuda")
+    xy = rng.uniform(0, 0.6 * support[1], size=(80, 2))
+    wh = rng.uniform(16, 0.4 * support[1], size=(80, 2))
+    s_boxes = torch.as_tensor(np.concatenate([xy, xy + wh], 1)
+                              .astype(np.float32), device="cuda")
+    s_valid = torch.ones(80, dtype=torch.bool, device="cuda")
+    with torch.inference_mode():
+        s_feats = [f.to(fcos.code_generator.compute_dtype).clone()
+                   for f in fcos.extract_features(s_img)]
+    register = (s_feats, fcos.code_generator.strides, s_boxes, s_valid,
+                torch.arange(80, device="cuda"))
+    errs["register"] = roi_align_case("registration (cell 3's shape)",
+                                      *register, output_size=7)
+    errs["roi_encoder"] = roi_align_case(
+        "ROIEncoder (10 supports)", [f[:10] for f in s_feats],
+        fcos.code_generator.strides, s_boxes[:10], s_valid[:10],
+        torch.arange(10, device="cuda"), output_size=7)
+    errs.update(_roi_edges())
+
+    # counts on the paths themselves
+    bank = model.normalize_code({
+        "cls_conv": torch.randn(8, 1024, device="cuda"),
+        "cls_bias": torch.zeros(8, device="cuda")})
+    counts = {}
+    for path, call in (
+            ("rcnn_roi_forward", lambda: model.roi_forward(
+                query[0], props[1], pvalid[1], bank)),
+            ("fcos_register", lambda: fcos.forward_class_code(
+                s_img, s_boxes, s_valid, num_shots=10))):
+        roi_align_kernel.LAUNCHES = roi_align_kernel.ROIS = 0
+        with torch.inference_mode():
+            call()
+        torch.cuda.synchronize()
+        counts[path] = {"launches": roi_align_kernel.LAUNCHES,
+                        "rois": roi_align_kernel.ROIS}
+        if roi_align_kernel.LAUNCHES < 1 or roi_align_kernel.ROIS < 1:
+            raise AssertionError(f"{path}: no ROIAlign launch ({counts})")
+    log(f"[roi_align] launches and ROIs by path: {counts}")
+
+    grads = _roi_grads(feats, strides, props[1, :512].clone())
+    times = {"query": roi_align_times(*query, output_size=7),
+             "register": roi_align_times(*register, output_size=7)}
+    for k, t in times.items():
+        log(f"[roi_align] {k}: kernel {t['kernel_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms (bytes), twin {t['twin_ms']:.2f} ms")
+    with torch.no_grad():
+        span_share = roi_align_span_share(
+            lambda: multilevel_roi_align(*query, output_size=7))
+    log(f"[roi_align] profiler: {span_share}")
+    return {"roi_align": "kernel_vs_twin",
+            "launches_in_phases_4_27": earlier, "max_rel_err": errs,
+            "limit_rel": ROI_ALIGN_REL_LIMIT,
+            "query_rois_by_level": levels_used, "gradients": grads,
+            "counts_by_path": counts, "times": times,
+            "profiler": span_share,
+            "channels_per_block": {
+                str(n): roi_align_kernel.channels_per_block(
+                    n, 256, 7, torch.cuda.get_device_properties(0)
+                    .multi_processor_count) for n in (10, 80, 1000)},
+            "card": card}
+
+
 def main() -> int:
     os.environ.pop("SYLPH_TEST_MODE", None)  # it would cut the query set
     if not torch.cuda.is_available():
@@ -3605,7 +3909,11 @@ def main() -> int:
     nms_kernel.build(("nms", "nms_greedy"))
     log(f"[build] nms.cu and nms_greedy.cu built in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, out in nms_kernel.BUILD_LOG.items():
+    t0 = time.perf_counter()
+    roi_align_kernel.build()
+    log(f"[build] roi_align.cu built in {time.perf_counter() - t0:.1f} s")
+    logs = {**nms_kernel.BUILD_LOG, "roi_align": roi_align_kernel.BUILD_LOG}
+    for name, out in logs.items():
         for line in out.splitlines():
             if any(w in line for w in ("Compiling", "registers", "spill")):
                 log(f"[build] {name}: {line.strip()}")
@@ -3651,6 +3959,9 @@ def main() -> int:
         t0 = time.perf_counter()
         switch_counts, switch_line = phase_switches(work, card)
         log(f"[time] phase 27: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        roi_line = phase_roi_align(work, card)
+        log(f"[time] phase 28: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[time] every phase, the builds included: "
@@ -3686,7 +3997,14 @@ def main() -> int:
                     launches_on_one_stage_train_paths=train_launches,
                     max_abs_err=max_err,
                     library_ms=None, **timing, **meta_timing,
-                    shapes=shapes)]
+                    shapes=shapes),
+               dict(name="roi_align", route="cuda",
+                    source="sylph_tpu_torch/csrc/roi_align.cu",
+                    replaces=None,
+                    launches=roi_line["launches_in_phases_4_27"],
+                    launches_by_path=roi_line["counts_by_path"],
+                    max_rel_err=max(roi_line["max_rel_err"].values()),
+                    library_ms=None, shapes=roi_line["times"])]
     rcnn_line["plain"] = plain_part
     rcnn_line["card"] = card
     print(json.dumps(episodic_line), flush=True)
@@ -3694,7 +4012,7 @@ def main() -> int:
     for line in (ep_line, rpre_line, tfa_line, roi_serve, roi_train,
                  *tfa1_lines, dcn_serve, dcn_train, *dp_train_lines, dp_line,
                  registration_line, quality_line, bench_line,
-                 repeat_line, switch_line):
+                 repeat_line, switch_line, roi_line):
         print(json.dumps(line), flush=True)
     print(json.dumps(rcnn_line), flush=True)
     print(card, flush=True)

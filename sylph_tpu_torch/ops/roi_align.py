@@ -14,6 +14,13 @@ the port's version is tensor code too. Every detail is kept:
   * multilevel assignment ``floor(4 + log2(sqrt(area) / 224 + 1e-8))``,
     clamped to the levels present; invalid boxes give zeros.
 
+Dispatch follows the device: on CUDA tensors ``roi_align`` and
+``multilevel_roi_align`` launch the hand-written kernel
+(``ops/roi_align_kernel.py``, ``csrc/roi_align.cu``), which pools each ROI
+at its assigned level only, or raise; on CPU tensors they run the plain
+twins ``roi_align_plain`` and ``multilevel_roi_align_plain``. The kernel's
+gradient with respect to the maps is the twin's (``KernelROIAlign``).
+
 The bilinear taps read the map through ``_Gather``, whose backward sums
 each pixel's gradients in the order the taps name it, on either device, so
 a run repeats its bits. Autograd's own backward of the indexing
@@ -30,6 +37,7 @@ from typing import Sequence
 
 import torch
 
+from . import roi_align_kernel
 from ..structures import box_area
 
 
@@ -37,7 +45,33 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor,
               batch_idx: torch.Tensor, *, spatial_scale: float,
               output_size: int, sampling_ratio: int = 0,
               max_grid: int = 4) -> torch.Tensor:
-    """Pool ROIs from one feature level.
+    """Pool ROIs from one feature level: ``roi_align_plain``'s arguments
+    and result; on CUDA tensors the kernel with one level."""
+    opts = dict(output_size=output_size, sampling_ratio=sampling_ratio,
+                max_grid=max_grid)
+
+    def twin(maps, bx):
+        return roi_align_plain(maps[0], bx, batch_idx,
+                               spatial_scale=spatial_scale, **opts)
+    if not (features.is_cuda or boxes.is_cuda):
+        return twin([features], boxes)
+    n = boxes.shape[0]
+
+    def kernel(maps, bx):
+        return roi_align_kernel.roi_align_cuda(
+            maps, bx, batch_idx,
+            torch.zeros(n, dtype=torch.long, device=bx.device),
+            torch.ones(n, dtype=torch.bool, device=bx.device),
+            [spatial_scale], **opts)
+    return roi_align_kernel.KernelROIAlign.apply(kernel, twin, boxes,
+                                                 features)
+
+
+def roi_align_plain(features: torch.Tensor, boxes: torch.Tensor,
+                    batch_idx: torch.Tensor, *, spatial_scale: float,
+                    output_size: int, sampling_ratio: int = 0,
+                    max_grid: int = 4) -> torch.Tensor:
+    """Pool ROIs from one feature level (the plain twin).
 
     Args:
       features: (B, C, H, W).
@@ -154,13 +188,58 @@ def _bilinear_pool(features, batch_idx, ys, xs, valid_y, valid_x, count,
     return out.reshape(n, p * p, c)
 
 
+def assign_levels(boxes: torch.Tensor, strides: Sequence[int],
+                  num_levels: int, canonical_level: int = 4,
+                  canonical_box_size: int = 224) -> torch.Tensor:
+    """(N,) int64 index into the levels: ``floor(canonical_level +
+    log2(sqrt(area) / canonical_box_size + 1e-8))``, clamped to the levels
+    present."""
+    min_level = int(math.log2(strides[0]))
+    area = box_area(boxes.float())
+    target = torch.floor(canonical_level + torch.log2(
+        torch.sqrt(torch.clamp(area, min=1e-6)) / canonical_box_size + 1e-8))
+    target = torch.clamp(target, min_level, min_level + num_levels - 1)
+    return target.long() - min_level
+
+
 def multilevel_roi_align(features: Sequence[torch.Tensor],
                          strides: Sequence[int], boxes: torch.Tensor,
                          valid: torch.Tensor, batch_idx: torch.Tensor, *,
                          output_size: int, sampling_ratio: int = 0,
                          max_grid: int = 4, canonical_level: int = 4,
                          canonical_box_size: int = 224) -> torch.Tensor:
-    """FPN-level-assigned ROIAlign (detectron2 ROIPooler semantics).
+    """FPN-level-assigned ROIAlign (detectron2 ROIPooler semantics):
+    ``multilevel_roi_align_plain``'s arguments and result. On CUDA tensors
+    one kernel launch pools each ROI at its level; the levels are assigned
+    on the card by ``assign_levels``."""
+    opts = dict(output_size=output_size, sampling_ratio=sampling_ratio,
+                max_grid=max_grid)
+    levels = dict(canonical_level=canonical_level,
+                  canonical_box_size=canonical_box_size)
+
+    def twin(maps, bx):
+        return multilevel_roi_align_plain(maps, strides, bx, valid,
+                                          batch_idx, **opts, **levels)
+    if not (boxes.is_cuda or any(f.is_cuda for f in features)):
+        return twin(features, boxes)
+
+    def kernel(maps, bx):
+        return roi_align_kernel.roi_align_cuda(
+            maps, bx, batch_idx,
+            assign_levels(bx, strides, len(maps), **levels), valid,
+            [1.0 / s for s in strides[:len(maps)]], **opts)
+    return roi_align_kernel.KernelROIAlign.apply(kernel, twin, boxes,
+                                                 *features)
+
+
+def multilevel_roi_align_plain(features: Sequence[torch.Tensor],
+                               strides: Sequence[int], boxes: torch.Tensor,
+                               valid: torch.Tensor, batch_idx: torch.Tensor,
+                               *, output_size: int, sampling_ratio: int = 0,
+                               max_grid: int = 4, canonical_level: int = 4,
+                               canonical_box_size: int = 224) -> torch.Tensor:
+    """FPN-level-assigned ROIAlign, the plain twin: every ROI pooled at
+    every level, then its own level kept.
 
     Args:
       features: list of (B, C, H_l, W_l) maps, one per level.
@@ -170,18 +249,12 @@ def multilevel_roi_align(features: Sequence[torch.Tensor],
     Returns:
       (N, C, P, P) float32 pooled features (zeros for invalid boxes).
     """
-    num_levels = len(features)
-    min_level = int(math.log2(strides[0]))
-    area = box_area(boxes.float())
-    target = torch.floor(canonical_level + torch.log2(
-        torch.sqrt(torch.clamp(area, min=1e-6)) / canonical_box_size + 1e-8))
-    target = torch.clamp(target, min_level, min_level + num_levels - 1)
-    level_idx = target.long() - min_level  # (N,)
-
+    level_idx = assign_levels(boxes, strides, len(features), canonical_level,
+                              canonical_box_size)
     pooled = torch.stack([
-        roi_align(f, boxes, batch_idx, spatial_scale=1.0 / s,
-                  output_size=output_size, sampling_ratio=sampling_ratio,
-                  max_grid=max_grid)
+        roi_align_plain(f, boxes, batch_idx, spatial_scale=1.0 / s,
+                        output_size=output_size,
+                        sampling_ratio=sampling_ratio, max_grid=max_grid)
         for f, s in zip(features, strides)
     ])  # (L, N, C, P, P)
     out = pooled[level_idx, torch.arange(boxes.shape[0],
