@@ -59,10 +59,13 @@ def fpn_macs(shapes: Dict[str, Shape], in_features: Sequence[str],
     return macs, sizes
 
 
-def pyramid_macs(cfg: Dict, family: str, canvas: Sequence[int]
+def pyramid_macs(cfg: Dict, canvas: Sequence[int]
                  ) -> Tuple[int, List[Tuple[int, int]]]:
+    """Multiply-adds of the backbone and FPN, and each level's (height,
+    width): convolved P6/P7 where ``cfg`` holds ``MODEL.FPN.TOP_LEVELS``, a
+    max-pooled P6 otherwise (as ``reference/detector.py::pyramid``)."""
     bb, shapes = resnet_macs(cfg["MODEL.RESNETS.DEPTH"], *canvas)
-    if family == "fcos":
+    if "MODEL.FPN.TOP_LEVELS" in cfg:
         fp, sizes = fpn_macs(shapes, cfg["MODEL.FPN.IN_FEATURES"], "p6p7",
                              cfg["MODEL.FPN.TOP_LEVELS"])
     else:
@@ -72,7 +75,7 @@ def pyramid_macs(cfg: Dict, family: str, canvas: Sequence[int]
 
 def fcos_query_flops(cfg: Dict, bank_rows: int) -> Dict[str, int]:
     """One query image of Meta-FCOS at the eval canvas."""
-    bb, sizes = pyramid_macs(cfg, "fcos", cfg["TPU.EVAL_CANVAS"])
+    bb, sizes = pyramid_macs(cfg, cfg["TPU.EVAL_CANVAS"])
     head, convs = 0, cfg["MODEL.FCOS.NUM_CLS_CONVS"]
     for h, w in sizes:
         head += h * w * 256 * (2 * convs * 256 * 9 + (4 + 1 + 1) * 9
@@ -84,7 +87,7 @@ def fcos_query_flops(cfg: Dict, bank_rows: int) -> Dict[str, int]:
 def rcnn_query_flops(cfg: Dict, bank_rows: int) -> Dict[str, int]:
     """One query image of Meta Faster R-CNN at the eval canvas, with
     ``MODEL.RPN.POST_NMS_TOPK_TEST`` proposals through the box head."""
-    bb, sizes = pyramid_macs(cfg, "rcnn", cfg["TPU.EVAL_CANVAS"])
+    bb, sizes = pyramid_macs(cfg, cfg["TPU.EVAL_CANVAS"])
     a = len(cfg["MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS"][0])
     rpn = sum(h * w * 256 * (256 * 9 + a + 4 * a) for h, w in sizes)
     p = cfg["MODEL.RPN.POST_NMS_TOPK_TEST"]
@@ -100,7 +103,7 @@ def fcos_register_flops(cfg: Dict) -> Dict[str, int]:
     through the backbone and FPN, and the code generator on each shot's
     pooled 7 x 7 box."""
     shots = cfg["MODEL.META_LEARN.EVAL_SHOT"]
-    bb, _ = pyramid_macs(cfg, "fcos", cfg["TPU.SUPPORT_CANVAS"])
+    bb, _ = pyramid_macs(cfg, cfg["TPU.SUPPORT_CANVAS"])
     width = cfg["MODEL.META_LEARN.CODE_GENERATOR.OUT_CHANNEL"]
     towers = len(cfg["MODEL.META_LEARN.CODE_GENERATOR.TOWER_LAYERS"])
     cg = 49 * 256 * 9 * (towers * 256 + width + 1)

@@ -82,7 +82,7 @@ class Driver(QueryDriver):
                              "score_log_gap", "miss_share"), 0.0)
         props_n = props_missed = own_n = own_lost = kept = missed = 0
         for c0 in range(0, images.shape[0], CHUNK):
-            feats = ref.pyramid(sd, images[c0:c0 + CHUNK], cfg, "rcnn", arith)
+            feats = ref.pyramid(sd, images[c0:c0 + CHUNK], cfg, arith)
             hw = [list(map(float, s)) for s in sizes[c0:c0 + CHUNK]]
             own = ref.rcnn_proposals(sd, feats, hw, cfg, arith)
             for b in range(len(hw)):

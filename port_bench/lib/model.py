@@ -10,8 +10,9 @@ same table) computes the same thing.
 
 The detector is built by the runner's own ``build_model`` (its
 ``MODEL.WEIGHTS`` is empty, so the runner loads nothing over its seeded
-init), then takes the benchmark's seeded state dict (``weights.py``) with
-``strict=True``; the evaluation then holds its weights as
+init), then takes the benchmark's seeded state dict (``weights.py``, each
+key drawn by the type of the module that owns it) with ``strict=True``;
+the evaluation then holds its weights as
 ``utils/precision.py::eval_resident_params`` says, as ``do_test`` does.
 """
 
@@ -73,7 +74,6 @@ def build(conf: Dict, seed: int, device) -> Tuple[torch.nn.Module, object,
 
     cls, cfg = merged_cfg(conf)
     model = cls(device=device).build_model(cfg)
-    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    sd = seeded_state_dict(shapes, seed, device)
+    sd = seeded_state_dict(model, seed, device)
     model.load_state_dict(sd, strict=True)
     return eval_resident_params(cfg, model.eval()), cfg, sd

@@ -7,68 +7,82 @@ and the same dict goes to the program and to the reference. The
 distributions are chosen so that a full-depth network of random weights
 keeps its activations O(1) and gives spread scores:
 
-  * convolution and linear weights: normal / sqrt(fan-in); biases
-    0.1 * normal;
+  * convolution (deformable too) and linear weights: normal /
+    sqrt(fan-in); their biases, of any shape (the attention's (heads,
+    head_dim) projections too), 0.1 * normal;
   * frozen BN: scale gamma / sqrt(var + 1e-5), bias beta - mean * scale,
     with gamma 1 + 0.1 * normal, beta and mean 0.1 * normal and var uniform
     in [0.8, 1.2);
-  * GroupNorm: weight 1 + 0.1 * normal, bias 0.1 * normal; learned scalar
-    scales 1 + 0.1 * normal;
+  * GroupNorm and LayerNorm: weight 1 + 0.1 * normal, bias 0.1 * normal;
+    learned scalar scales 1 + 0.1 * normal;
   * the two-stage heads read maps of standard deviation ~100 with no norm
     before them, so ``GAIN`` scales their first layers down: objectness and
     class logits come out O(1) and box deltas ~0.1 (proposals stay near
     their anchors); the box head's background row is normal / sqrt(1024),
     its bias 0.
 
-Each key is classified by its module's name as the weight conversion pins
-it; an unknown name raises.
+Each key is classified by the type of the module that owns it in the built
+detector (``kind``); ``GAIN`` and the box head's background row keep their
+rules by name. A key of a type that no rule covers raises, naming the type.
 """
 
 from __future__ import annotations
 
 import math
-import re
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
+from torch import nn
 
 GAIN = {"rpn_head.conv": 0.01, "rpn_head.anchor_deltas": 0.1,
         "box_head.fc1": 0.01, "box_head.bbox_pred": 0.1}
 BN_EPS = 1e-5
-_BN = re.compile(r"(^|\.)(stem_bn1|bn\d|shortcut_bn)$")
-_GN = re.compile(r"(^|\.)(gn\d+|\w+_gn|post_norm)$")
 
 
-def kind(key: str, shape: Tuple[int, ...]) -> str:
-    """'bn', 'gn', 'scale', 'bg_weight', 'bg_bias', 'weight' or 'bias'."""
-    module, _, leaf = key.rpartition(".")
-    if _BN.search(module) and leaf in ("scale", "bias"):
-        return "bn"
-    if _GN.search(module) and leaf in ("weight", "bias"):
-        return "gn"
-    if leaf == "scale" and len(shape) == 0:
-        return "scale"
+def kind(key: str, owner: nn.Module) -> str:
+    """'bn', 'norm', 'scale', 'bg_weight', 'bg_bias', 'weight' or 'bias' for
+    the state-dict ``key`` of the module ``owner``."""
+    from sylph_tpu_torch.models.layers import Scale
+    from sylph_tpu_torch.models.resnet import FrozenBatchNorm
+    from sylph_tpu_torch.ops.deform_conv import DFConv2d
+
+    leaf = key.rpartition(".")[2]
     if key.endswith("box_head.bg_weight"):
         return "bg_weight"
     if key.endswith("box_head.bg_bias"):
         return "bg_bias"
-    if leaf == "weight" and len(shape) in (2, 4):
-        return "weight"
-    if leaf == "bias" and len(shape) == 1:
-        return "bias"
-    raise ValueError(f"no rule for the weight {key!r} {shape}")
+    if isinstance(owner, FrozenBatchNorm) and leaf in ("scale", "bias"):
+        return "bn"
+    if (isinstance(owner, (nn.GroupNorm, nn.LayerNorm))
+            and leaf in ("weight", "bias")):
+        return "norm"
+    if isinstance(owner, Scale) and leaf == "scale":
+        return "scale"
+    if (isinstance(owner, (nn.Conv2d, nn.Linear, DFConv2d))
+            and leaf in ("weight", "bias")):
+        return leaf
+    raise ValueError(f"no rule for the weight {key!r} of a "
+                     f"{type(owner).__name__}")
 
 
-def seeded_state_dict(shapes: Dict[str, Tuple[int, ...]], seed: int,
+def kinds(model: nn.Module) -> Dict[str, str]:
+    """The rule of every key of ``model``'s state dict, in its order."""
+    return {k: kind(k, model.get_submodule(k.rpartition(".")[0]))
+            for k in model.state_dict()}
+
+
+def seeded_state_dict(model: nn.Module, seed: int,
                       device) -> Dict[str, torch.Tensor]:
-    """float32 values for every key of ``shapes`` (state-dict order), drawn
-    on ``device`` from ``seed``."""
+    """float32 values for every key of ``model``'s state dict (in its
+    order), drawn on ``device`` from ``seed``."""
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    rule = kinds(model)
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     sizes = {k: math.prod(s) for k, s in shapes.items()}
     # frozen BN draws 4 normals and 1 uniform a channel (for its 2 keys)
-    n_norm = sum(2 * n if kind(k, shapes[k]) == "bn" else n
+    n_norm = sum(2 * n if rule[k] == "bn" else n
                  for k, n in sizes.items())
     normal = torch.randn(n_norm, generator=gen, device=dev)
     uniform = torch.rand(sum(sizes.values()), generator=gen, device=dev)
@@ -81,14 +95,14 @@ def seeded_state_dict(shapes: Dict[str, Tuple[int, ...]], seed: int,
 
     bn_pending = {}
     for key, shape in shapes.items():
-        n, k = sizes[key], kind(key, shapes[key])
+        n, k = sizes[key], rule[key]
         module = key.rpartition(".")[0]
         if k == "weight":
             fan_in = math.prod(shape[1:])
             v = take(n) * GAIN.get(module, 1.0) / math.sqrt(fan_in)
         elif k == "bias":
             v = 0.1 * take(n)
-        elif k == "gn":
+        elif k == "norm":
             v = (1.0 if key.endswith("weight") else 0.0) + 0.1 * take(n)
         elif k == "scale":
             v = 1.0 + 0.1 * take(n)

@@ -32,13 +32,15 @@ def normalize(images: torch.Tensor, cfg: Dict) -> torch.Tensor:
     return ((images.float() - mean) / std).permute(0, 3, 1, 2)
 
 
-def pyramid(sd, images: torch.Tensor, cfg: Dict, family: str,
+def pyramid(sd, images: torch.Tensor, cfg: Dict,
             arith: Arith) -> List[torch.Tensor]:
-    """uint8 canvases -> the family's pyramid maps, finest first."""
+    """uint8 canvases -> the pyramid maps, finest first: convolved P6/P7
+    above them where ``cfg`` holds ``MODEL.FPN.TOP_LEVELS``, a max-pooled
+    P6 otherwise."""
     feats_in = cfg["MODEL.FPN.IN_FEATURES"]
     feats = resnet(sd, normalize(images, cfg), arith,
                    cfg["MODEL.RESNETS.DEPTH"], feats_in)
-    if family == "fcos":
+    if "MODEL.FPN.TOP_LEVELS" in cfg:
         return fpn(sd, feats, arith, feats_in, "p6p7",
                    cfg["MODEL.FPN.TOP_LEVELS"])
     return fpn(sd, feats, arith, feats_in, "maxpool")
@@ -46,7 +48,7 @@ def pyramid(sd, images: torch.Tensor, cfg: Dict, family: str,
 
 # ------------------------------------------------------------------ FCOS
 def fcos_dense(sd, images, bank, cfg, arith) -> Dense:
-    return fcos_head(sd, pyramid(sd, images, cfg, "fcos", arith), bank,
+    return fcos_head(sd, pyramid(sd, images, cfg, arith), bank,
                      arith, cfg["MODEL.FCOS.NUM_CLS_CONVS"])
 
 
@@ -113,7 +115,7 @@ def rcnn_roi(sd, feats, b: int, props: torch.Tensor, image_hw, bank, cfg,
 def rcnn_detect(sd, images, image_sizes: Sequence, bank, cfg,
                 arith: Arith) -> List[RCNNImage]:
     """Both stages of each image, on the reference's own proposals."""
-    feats = pyramid(sd, images, cfg, "rcnn", arith)
+    feats = pyramid(sd, images, cfg, arith)
     props = rcnn_proposals(sd, feats, image_sizes, cfg, arith)
     return [rcnn_roi(sd, feats, b, p, image_sizes[b], bank, cfg, arith)
             for b, p in enumerate(props)]
@@ -122,7 +124,7 @@ def rcnn_detect(sd, images, image_sizes: Sequence, bank, cfg,
 # ------------------------------------------------------- registration
 def fcos_register(sd, images, boxes, cfg, arith) -> Dict[str, torch.Tensor]:
     """S support canvases and their boxes -> raw codes of S/shots classes."""
-    feats = pyramid(sd, images, cfg, "fcos", arith)
+    feats = pyramid(sd, images, cfg, arith)
     towers = len(cfg["MODEL.META_LEARN.CODE_GENERATOR.TOWER_LAYERS"])
     return class_codes(sd, feats, boxes.float(),
                        cfg["MODEL.FCOS.FPN_STRIDES"],

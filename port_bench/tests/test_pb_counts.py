@@ -85,14 +85,18 @@ def test_nms_walk_and_bound():
 
 
 def test_seeded_weights_are_the_seeds():
-    shapes = {"backbone.stem_conv1.weight": (4, 3, 7, 7),
-              "backbone.stem_bn1.scale": (4,), "backbone.stem_bn1.bias": (4,),
-              "fpn.output_res3.bias": (4,), "fcos_head.scale_l0.scale": (),
-              "fcos_head.cls_tower.gn0.weight": (4,)}
-    a = seeded_state_dict(shapes, 5, "cpu")
-    b = seeded_state_dict(shapes, 5, "cpu")
-    c = seeded_state_dict(shapes, 6, "cpu")
-    assert all(torch.equal(a[k], b[k]) for k in shapes)
-    assert not torch.equal(a["backbone.stem_conv1.weight"],
-                           c["backbone.stem_conv1.weight"])
-    assert (a["backbone.stem_bn1.scale"] > 0).all()
+    from sylph_tpu_torch.models.layers import Conv2d, GroupNorm, Scale
+    from sylph_tpu_torch.models.resnet import FrozenBatchNorm
+
+    model = torch.nn.Module()
+    model.stem_conv1 = Conv2d(3, 4, 7)
+    model.stem_bn1 = FrozenBatchNorm(4)
+    model.scale_l0 = Scale()
+    model.gn0 = GroupNorm(2, 4)
+    a = seeded_state_dict(model, 5, "cpu")
+    b = seeded_state_dict(model, 5, "cpu")
+    c = seeded_state_dict(model, 6, "cpu")
+    assert list(a) == list(model.state_dict())
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["stem_conv1.weight"], c["stem_conv1.weight"])
+    assert (a["stem_bn1.scale"] > 0).all()

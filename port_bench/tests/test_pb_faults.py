@@ -19,7 +19,6 @@ cells' limits too, here at toy size."""
 from __future__ import annotations
 
 import argparse
-import json
 
 import pytest
 import torch
@@ -27,9 +26,10 @@ import torch
 from conftest import ROOT
 
 from port_bench import run as pb_run
+from port_bench.lib import spec
 
-CELLS = [w["name"] for w in json.loads(
-    (ROOT / "BENCHMARK.json").read_text())["workloads"]]
+BENCH = spec.Bench(ROOT / "BENCHMARK.json")
+CELLS = [w["name"] for w in BENCH.data["workloads"]]
 
 
 def _args(bench, cell):
@@ -56,6 +56,7 @@ def _altered_answer(monkeypatch):
     from sylph_tpu_torch.evaluation import meta_eval
     from sylph_tpu_torch.meta_faster_rcnn_runner import FewShotRCNN
     from sylph_tpu_torch.models.code_generator import CodeGeneratorHead
+    from sylph_tpu_torch.models.roi_encoder import ROIEncoder
 
     orig_decode = meta_eval.decode_proposals
 
@@ -73,13 +74,12 @@ def _altered_answer(monkeypatch):
         return det
     monkeypatch.setattr(FewShotRCNN, "_two_stage_infer", infer)
 
-    orig_codes = CodeGeneratorHead.forward
-
-    def codes(self, *a, **k):
-        out = orig_codes(self, *a, **k)
-        out["cls_conv"][0] = out["cls_conv"][0] * 1.2
-        return out
-    monkeypatch.setattr(CodeGeneratorHead, "forward", codes)
+    for cls in (CodeGeneratorHead, ROIEncoder):
+        def codes(self, *a, orig=cls.forward, **k):
+            out = orig(self, *a, **k)
+            out["cls_conv"][0] = out["cls_conv"][0] * 1.2
+            return out
+        monkeypatch.setattr(cls, "forward", codes)
 
 
 def _proposals(broken):
@@ -107,9 +107,11 @@ def _one_repeated(props, valid):
 
 _proposals_cut_short = _proposals(_cut_short)
 _proposals_one_repeated = _proposals(_one_repeated)
-RCNN_CELLS = [w["name"] for w in json.loads(
-    (ROOT / "BENCHMARK.json").read_text())["workloads"]
-    if w["config"] == "meta_rcnn_r50"]
+# the two-stage query cells: an R-CNN family's configuration under a mix of
+# the query driver
+RCNN_CELLS = [w["name"] for w in BENCH.data["workloads"]
+              if BENCH.config(w["config"])["family"] == "rcnn"
+              and BENCH.traffic(w["traffic"])["driver"] == "query"]
 
 
 @pytest.mark.parametrize("fault", [_half_batch, _altered_answer])
@@ -143,7 +145,6 @@ def test_sound_toy_run_is_correct(toy_bench, cell):
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_fails_the_cell_limits(toy_bench, cell):
     """The float8 control at toy size against each cell's own limits."""
-    from port_bench.lib import spec
     from port_bench.lib.cell import Cell
     from port_bench.lib.check import judge
 
@@ -161,7 +162,6 @@ def test_control_fails_the_cell_limits(toy_bench, cell):
 def test_control_fails_on_the_card(card, cell):
     """The control at the cell's own size on the card, three seeds, against
     the committed limits."""
-    from port_bench.lib import spec
     from port_bench.lib.cell import Cell
     from port_bench.lib.check import judge
 

@@ -13,7 +13,7 @@ import sys
 
 import pytest
 
-from conftest import ROOT
+from conftest import ROOT, make_toy_bench
 
 from port_bench.lib import spec
 
@@ -110,27 +110,106 @@ def test_configs_under_paths():
         assert sorted(conf["reduced"]) == sorted(c["reduced"])
 
 
-@pytest.mark.parametrize("cell,trace", [
-    ("fcos_query_b8_c80", 0), ("fcos_query_b8_c80", 1),
-    ("rcnn_query_b8_c1203", 0), ("rcnn_query_b8_c1203", 1),
-    ("fcos_register_s10_cb8", 0)])
-def test_toy_run_prints_a_result(toy_bench, cell, trace):
+def _toy_result(bench, cell, trace):
+    """A toy run of ``cell`` of the benchmark ``bench`` through ``run.py``,
+    held to the result line's contract."""
     p = _run(["--workload", cell, "--seed", "3000000017", "--seconds", "2",
               "--trace", str(trace), "--device", "cpu",
-              "--benchmark", str(toy_bench)])
+              "--benchmark", str(bench)])
     assert p.returncode == 0, p.stderr[-3000:]
     line = json.loads(p.stdout.strip().splitlines()[-1])
     assert list(line)[-1] == "check"
     assert {"correct", "attempted", "failed", "metrics", "device"} <= set(line)
     assert line["correct"] is True and line["attempted"] > 0
     assert line["device"]["platform"] == "cpu"
-    wanted = {m["name"] for m in spec.Bench().metrics(cell, bool(trace))}
+    wanted = {m["name"] for m in spec.Bench(bench).metrics(cell, bool(trace))}
     assert set(line["metrics"]) <= wanted
     if not trace:
         assert set(line["metrics"]) == wanted
     for m in line["metrics"].values():
         assert set(m) == {"value", "unit"}
     assert p.stderr.strip().splitlines()[-1].startswith("check ")
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_toy_run_prints_a_result(toy_bench, cell, trace):
+    _toy_result(toy_bench, cell, trace)
+
+
+ROIENC = {
+    "source": "https://github.com/facebookresearch/sylph-few-shot-detection"
+              "/blob/main/configs/LVISv1-Detection/Meta-FCOS/"
+              "Meta-FCOS-ROI-Encoder-finetune.yaml",
+    "runner": "MetaFCOSROIEncoderRunner",
+    "yaml": "sylph://LVISv1-Detection/Meta-FCOS/"
+            "Meta-FCOS-ROI-Encoder-finetune.yaml",
+    "opts": [],
+    "toy_opts": ["MODEL.RESNETS.DEPTH", 18, "TPU.EVAL_CANVAS", [64, 96],
+                 "TPU.SUPPORT_CANVAS", [64, 64], "TPU.COMPUTE_DTYPE",
+                 "float32"],
+    "family": "fcos",
+    "ranges": ["backbone", "fpn", "fcos_head", "code_generator"],
+    "reduced": {"MODEL.WEIGHTS": "random weights from --seed"},
+}
+ROIENC_KEYS = [f"MODEL.META_LEARN.CODE_GENERATOR.{k}" for k in (
+    "NAME", "TOKENIZER.NUM_CONV", "TOKENIZER.NORM", "TOKENIZER.NUM_FC",
+    "TOKENIZER.FC_DIM", "TRANSFORMER_ENCODER.LAYERS",
+    "TRANSFORMER_ENCODER.HEADS", "HEAD.NUM_FC", "HEAD.FC_DIM",
+    "HEAD.OUTPUT_DIM")]
+
+
+def _sources(root):
+    """(path, bytes) of every file under ``root/port_bench`` but caches."""
+    return sorted((str(f.relative_to(root)), f.read_bytes())
+                  for f in (root / "port_bench").rglob("*")
+                  if f.is_file() and "__pycache__" not in f.parts)
+
+
+@pytest.fixture(scope="module")
+def roienc_bench(tmp_path_factory):
+    """A checkout that adds the LVIS ROI-Encoder configuration and a query
+    cell over ``query_ring_c80`` as files and entries alone, cut to toys."""
+    from port_bench.lib.model import _get, _plain, merged_cfg
+
+    src = tmp_path_factory.mktemp("roienc_src")
+    shutil.copytree(ROOT / "port_bench", src / "port_bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    fcos = json.loads((ROOT / "port_bench/configs/meta_fcos_r50.json")
+                      .read_text())
+    conf = dict(ROIENC, name="meta_fcos_roienc_r50", cfg={})
+    _, cfg = merged_cfg(conf)
+    conf["cfg"] = {k: _plain(_get(cfg, k))
+                   for k in [*fcos["cfg"], *ROIENC_KEYS]}
+    conf.pop("name")
+    assert conf["cfg"]["MODEL.META_LEARN.CODE_GENERATOR.NAME"] == "ROIEncoder"
+    (src / "port_bench/configs/meta_fcos_roienc_r50.json").write_text(
+        json.dumps(conf))
+    shutil.copy(src / "port_bench/limits/fcos_query_b8_c80.json",
+                src / "port_bench/limits/roienc_query_b8_c80.json")
+    bench["configs"].append({
+        "name": "meta_fcos_roienc_r50", "source": ROIENC["source"],
+        "file": "port_bench/configs/meta_fcos_roienc_r50.json",
+        "reduced": ["MODEL.WEIGHTS"], "why": "Sylph's ROIEncoder"})
+    bench["workloads"].append({
+        "name": "roienc_query_b8_c80", "config": "meta_fcos_roienc_r50",
+        "traffic": "query_ring_c80", "chips": 1, "why": "query batches"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "fcos_query_b8_c80" in m.get("workloads", []):
+            m["workloads"].append("roienc_query_b8_c80")
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
+    return make_toy_bench(tmp_path_factory.mktemp("roienc_toy"), src)
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_roi_encoder_cell_enters_as_files(roienc_bench, trace):
+    """The ROI-Encoder detector (MS-CAM, GN tokenizer, post-LN encoder)
+    takes its seeded weights, and its query cell runs through the
+    repository's ``run.py`` with nothing under ``port_bench/`` written."""
+    before = _sources(ROOT)
+    _toy_result(roienc_bench, "roienc_query_b8_c80", trace)
+    assert _sources(ROOT) == before
 
 
 def test_no_card_fails_without_fallback():
